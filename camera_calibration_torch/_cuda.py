@@ -64,6 +64,18 @@ SIGNATURES = {
     # out, stream
     "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _I,
                               _P, _P],
+    # k, gh, gw: blocks of the reduction's partial pass that fit on one SM
+    "cct_window_apply_jtw_blocks_per_sm": [_I, _I, _I],
+    "cct_window_block_diag_blocks_per_sm": [_I, _I, _I],
+    # k, gh, gw: shared memory of one block of the partial pass
+    "cct_window_apply_jtw_smem_bytes": [_I, _I, _I],
+    "cct_window_block_diag_smem_bytes": [_I, _I, _I],
+}
+
+# Entry points that return another type than an int status or count.
+RESTYPES = {
+    "cct_window_apply_jtw_smem_bytes": ctypes.c_longlong,
+    "cct_window_block_diag_smem_bytes": ctypes.c_longlong,
 }
 
 # Shared memory one block may use on Hopper (227 KB).
@@ -154,7 +166,7 @@ def lib():
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _state["lib"] = handle
     return _state["lib"]
 

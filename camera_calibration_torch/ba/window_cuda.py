@@ -20,6 +20,8 @@ K = 5 (noncentral).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from camera_calibration_torch import _cuda
@@ -27,10 +29,59 @@ from camera_calibration_torch import _cuda
 SUPPORTED_K = (2, 5)
 
 
-def _reduce_tile(k: int) -> int:
-    """Observations per block tile of the reduction kernels
-    (``cct::Tile<K>::kObs`` in ``csrc/window_reduce.cuh``)."""
-    return 128 if k <= 2 else 64
+# The two tile layouts of a reduction block (``cct::Tile<K, kRing>`` in
+# ``csrc/window_reduce.cuh``), as (observations per tile, stages): a ring
+# of two 64-observation stages wherever it fits in one block's shared
+# memory, else one compact stage of 32.
+RING = (64, 2)
+COMPACT = (32, 1)
+
+
+def _layout_smem_bytes(gh, gw, k, per_knot, layout):
+    tile, stages = layout
+    stage = 32 * k * (tile + 4) + 4 * tile
+    return 4 * (stages * stage + (gh + gw) * (tile // 32) + gh * gw * per_knot)
+
+
+def reduction_layout(gh: int, gw: int, k: int, per_knot: int) -> tuple:
+    """The layout (:data:`RING` or :data:`COMPACT`) of the reduction
+    kernels' block at this grid (``cct::use_ring``)."""
+    fits = _layout_smem_bytes(gh, gw, k, per_knot, RING) <= _cuda.MAX_SMEM_BYTES
+    return RING if fits else COMPACT
+
+
+def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int) -> int:
+    """Shared memory of one block of the reduction kernels
+    (``cct::partial_smem_bytes`` in ``csrc/window_reduce.cuh``): the
+    layout's stages, each 32K j_win rows of ``tile + 4`` floats plus two
+    floats and two ints per observation; one 32-bit mask word per 32
+    observations of a tile for every grid row and column; and the
+    (gh, gw, per_knot) accumulator grid."""
+    return _layout_smem_bytes(gh, gw, k, per_knot,
+                              reduction_layout(gh, gw, k, per_knot))
+
+
+def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
+                     num_sms: int) -> int:
+    """Blocks of the reduction's partial pass for N observations in tiles
+    of ``tile``: at most as many as are resident on the card at once, and
+    no more than it takes to give every block the same number of tiles (but
+    for the last few)."""
+    tiles = -(-n // tile)
+    per_block = -(-tiles // (blocks_per_sm * num_sms))
+    return -(-tiles // per_block)
+
+
+@functools.cache
+def _resident_blocks(name, k, gh, gw, device_index):
+    """Partial-pass blocks of kernel ``name`` that one SM holds at once
+    (the kernel's occupancy at this grid and K)."""
+    with torch.cuda.device(device_index):
+        per_sm = getattr(_cuda.lib(), f"cct_{name}_blocks_per_sm")(k, gh, gw)
+    if per_sm <= 0:
+        raise RuntimeError(f"{name}: no block of the reduction fits on an SM "
+                           f"at {gh}x{gw}, K={k}")
+    return per_sm
 
 
 # ------------------------------ plain versions ------------------------------
@@ -126,14 +177,15 @@ def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, cells_per_knot,
                       out_shape):
     n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, per_obs=per_obs)
-    tile = _reduce_tile(k)
-    # accumulator grid + j_win tile (rows padded by one) + weights and bases
-    smem = 4 * (gh * gw * cells_per_knot + 32 * k * (tile + 1) + 4 * tile)
-    _cuda.check_smem(smem, name)
+    _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot), name)
     out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
     if n == 0:
         return out.zero_()
-    nblocks = min(-(-n // tile), 4 * _cuda.num_sms(j_win.device))
+    dev = j_win.device
+    tile, _ = reduction_layout(gh, gw, k, cells_per_knot)
+    nblocks = reduction_blocks(n, tile,
+                               _resident_blocks(name, k, gh, gw, dev.index),
+                               _cuda.num_sms(dev))
     partial = torch.empty((nblocks, gh * gw * cells_per_knot),
                           dtype=torch.float32, device=j_win.device)
     _cuda.launch(name, j_win.data_ptr(), base_xy.data_ptr(),

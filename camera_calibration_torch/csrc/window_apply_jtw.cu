@@ -11,13 +11,17 @@
 // over all observations n, for knots inside the grid.  K = 2 and K = 5 are
 // instantiated.
 //
-// What bounds it on an H100: memory bandwidth.  Each observation's 32K
-// j_win floats are read once (coalesced, n contiguous) for 64K FLOP.  The
-// design (window_reduce.cuh) stages one tile of observations in shared
-// memory, accumulates the whole small output grid per block in shared
-// memory with each knot owned by one thread, and sums the per-block
-// partials in block order in a second small kernel: the result is the
-// same from run to run, with no atomics.
+// What bounds it on an H100: its least time is set by bytes, since each
+// observation's 32K j_win floats are read once (coalesced, n contiguous)
+// for 64K FLOP; on the bench problem the owner visits set the time
+// instead, because a clustered tile sends tens of observations to a few
+// knots whose owners add them one by one.  The design (window_reduce.cuh)
+// streams tiles of observations through a cp.async ring in shared memory,
+// folds ws into each staged column once (prepare: K values per window slot
+// remain), lets the owner thread of each knot add the columns its row and
+// column masks select, and sums the per-block grids in a fixed order in a
+// second small kernel: the result is the same from run to run, with no
+// atomics.
 
 #include "window_reduce.cuh"
 
@@ -27,13 +31,23 @@ template <int K>
 struct JtwOp {
   static constexpr int kPerKnot = K;
   static constexpr int kPerObs = 2;  // ws[n, 0], ws[n, 1]
-  static constexpr int S = cct::Tile<K>::kStride;
+  static constexpr bool kUsesWeights = false;
 
-  __device__ static void accumulate(float* a, const float* col, int f0,
-                                    const float* ws) {
+  // rows (slot*K + j) become j_win[0, slot, j]*ws0 + j_win[1, slot, j]*ws1
+  template <int S>
+  __device__ static void prepare(float* col, int slot, const float* ws) {
 #pragma unroll
-    for (int j = 0; j < K; ++j)
-      a[j] += col[(f0 + j) * S] * ws[0] + col[(16 * K + f0 + j) * S] * ws[1];
+    for (int j = 0; j < K; ++j) {
+      const int f = slot * K + j;
+      col[f * S] = col[f * S] * ws[0] + col[(16 * K + f) * S] * ws[1];
+    }
+  }
+
+  template <int S>
+  __device__ static void accumulate(float* a, const float* col, int f0,
+                                    const float*) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) a[j] += col[(f0 + j) * S];
   }
 
   __device__ static void store(float* out, int knot, int r, float v) {
@@ -61,4 +75,18 @@ extern "C" int cct_window_apply_jtw(const void* jwin, const void* base,
     return static_cast<int>(cct::launch_window_reduce<5, JtwOp<5>>(
         j, b, base_sn, base_sc, w, n, gh, gw, p, nblocks, o, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the partial pass that fit on one SM at once (0 if none does).
+extern "C" int cct_window_apply_jtw_blocks_per_sm(int k, int gh, int gw) {
+  if (k == 2) return cct::window_reduce_blocks_per_sm<2, JtwOp<2>>(gh, gw);
+  if (k == 5) return cct::window_reduce_blocks_per_sm<5, JtwOp<5>>(gh, gw);
+  return 0;
+}
+
+// Shared memory of one block of the partial pass (0 for another K).
+extern "C" long long cct_window_apply_jtw_smem_bytes(int k, int gh, int gw) {
+  if (k == 2) return cct::partial_smem_bytes<2>(gh, gw, JtwOp<2>::kPerKnot);
+  if (k == 5) return cct::partial_smem_bytes<5>(gh, gw, JtwOp<5>::kPerKnot);
+  return 0;
 }

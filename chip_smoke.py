@@ -12,15 +12,20 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    spills);
 3. holds every kernel against its plain PyTorch version on the card, at the
    shapes of the benchmark problem's main path (262,144 observations, 16×16
-   grid), on a non-square 21×28 grid, and with K = 5 window Jacobians;
+   grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera,
+   and with K = 5 window Jacobians;
 4. drives the main path: ``optimize`` on the full-size benchmark problem in
    the two-pass form and in the cached-blocks form, with the launch counts
    set to 0 just before and read just after, checks that every kernel ran
    and that the paired cost falls, and compares one LM step through the
    kernels with one through the plain versions;
 5. times every kernel, its plain version and, for the two matvecs, a
-   torch.sparse product as the library yardstick, with CUDA events, and
-   the LM iterations per second of both step forms with the host clock;
+   torch.sparse product as the library yardstick, with CUDA events around
+   calls from Python (``ms``, ``plain_ms``, ``library_ms``), and every
+   kernel again as one replay of a CUDA graph of 100 calls (``graph_ms``:
+   the card's time alone, without the host's per-call cost); the two
+   window reductions also at K = 5 (16×16) and at 45×79; and the LM
+   iterations per second of both step forms with the host clock;
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
@@ -79,16 +84,31 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def time_ms(torch, fn, reps, warmup=2):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+def time_ms(torch, fn, reps, warmup=2, graph=False):
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events around
+    ``reps`` calls).  With ``graph``, the ``reps`` calls are captured once
+    into a CUDA graph and the events time one replay: the card runs the
+    same work back to back, and the host's per-call cost (Python, launches),
+    which can exceed a short kernel's, is left out."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -299,14 +319,19 @@ def main() -> int:
     g02 = cg.pixel_to_grid(small, warm2).contiguous()
     check_project(small, dirs2.contiguous(), g02, 8, f"{gh2}x{gw2}")
     check_blocks(small, dirs2.contiguous(), g02, 8, f"{gh2}x{gw2}")
+    # 45x79 is the pipeline's default grid for a 1080p camera (25 px cells);
+    # the random inputs of the full-size cases are timed again in [5].
+    random_windows = {}
     for k, (hh, ww), nn in ((2, (gh2, gw2), n2), (5, (gh2, gw2), n2),
-                            (5, (gh, gw), n_obs)):
+                            (5, (gh, gw), n_obs), (2, (45, 79), n_obs)):
         jw = torch.as_tensor(rng.normal(0, 1, (32 * k, nn)),
                              dtype=torch.float32, device=dev)
         base = torch.as_tensor(
             np.stack([rng.integers(-3, ww, nn), rng.integers(-3, hh, nn)], 1),
             dtype=torch.int32, device=dev)
         check_window(jw, base, hh, ww, k, f"random {hh}x{ww} K={k}")
+        if nn == n_obs:
+            random_windows[(hh, ww, k)] = (jw, base)
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 4. main path
@@ -437,20 +462,47 @@ def main() -> int:
     kernels = []
     for name, r in rows.items():
         ms = time_ms(torch, r["kern"], reps=100, warmup=5)
+        graph_ms = time_ms(torch, r["kern"], reps=100, warmup=1, graph=True)
         plain_ms = time_ms(torch, r["plain"], reps=3, warmup=1)
         library_ms = (time_ms(torch, r["library"], reps=100, warmup=5)
                       if "library" in r else None)
         b_ms, b_by = bound_ms(r["nbytes"], r["flops"])
         lib_txt = "" if library_ms is None else f", torch.sparse {library_ms:.4f} ms"
-        log(f"[5] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms{lib_txt}, "
-            f"bound {b_ms:.4f} ms by {b_by}; {launches.get(name, 0)} launches "
-            f"on the main path) on {smi}")
+        log(f"[5] {name}: {ms:.4f} ms, graph {graph_ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms{lib_txt}, bound {b_ms:.4f} ms by {b_by}; "
+            f"{launches.get(name, 0)} launches on the main path) on {smi}")
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": launches.get(name, 0),
-            "max_abs_err": max_abs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "max_abs_err": max_abs[name], "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
         })
+
+    # The two reductions beyond the bench shapes, on the random inputs of
+    # [3]: K=5 on the bench grid, K=2 on the 1080p default grid.
+    for (hh, ww, k), (jw_x, base_x) in random_windows.items():
+        nx = jw_x.shape[1]
+        ws_x = torch.as_tensor(rng.normal(0, 1, (nx, 2)), dtype=torch.float32,
+                               device=dev)
+        w_x = torch.as_tensor(rng.uniform(0, 1, nx), dtype=torch.float32,
+                              device=dev)
+        inside_x = float(wc._window_index(base_x, hh, ww)[1].sum())
+        common = jw_x.numel() * 4 + nx * 2 * 4
+        for name, fn, nbytes, flops in (
+                ("window_apply_jtw",
+                 lambda: wc.window_apply_jtw(jw_x, base_x, ws_x, hh, ww, k),
+                 common + nx * 2 * 4 + hh * ww * k * 4, 4 * k * inside_x),
+                ("window_block_diag",
+                 lambda: wc.window_block_diag(jw_x, base_x, w_x, hh, ww, k),
+                 common + nx * 4 + hh * ww * k * k * 4,
+                 6 * (k * (k + 1) // 2) * inside_x)):
+            ms = time_ms(torch, fn, reps=100, warmup=5)
+            graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            log(f"[5] {name} random {hh}x{ww} K={k}: {ms:.4f} ms, graph "
+                f"{graph_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; {nx} "
+                f"observations) on {smi}")
 
     # LM iterations per second of both step forms, from a fresh perturbation
     # (the kernels are built and warm); no early stop inside the window.

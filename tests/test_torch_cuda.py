@@ -47,24 +47,53 @@ def _rel(got, ref):
     return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
-def _window_inputs(card, gh, gw, k, n, seed):
+def _window_inputs(card, gh, gw, k, n, seed, bases="random"):
+    """Seeded window inputs.  ``bases``: "random" (windows reach past every
+    edge), "same" (every window at one base inside the grid) or "outside"
+    (every window at (-10, -10), wholly off the grid)."""
     rng = np.random.default_rng(seed)
 
     def f32(a):
         return torch.as_tensor(a, dtype=torch.float32, device=card)
 
     j_win = f32(rng.normal(0, 1, (32 * k, n)))
-    base = torch.as_tensor(
-        np.stack([rng.integers(-3, gw, n), rng.integers(-3, gh, n)], 1),
-        dtype=torch.int32, device=card)
+    if bases == "random":
+        xy = np.stack([rng.integers(-3, gw, n), rng.integers(-3, gh, n)], 1)
+    else:
+        at = (gw // 3, gh // 3) if bases == "same" else (-10, -10)
+        xy = np.tile(np.array(at), (n, 1))
+    base = torch.as_tensor(xy, dtype=torch.int32, device=card)
     return (j_win, base, f32(rng.normal(0, 1, (gh, gw, k))),
             f32(rng.normal(0, 1, (n, 2))), f32(rng.uniform(0, 1, n)))
 
 
-@pytest.mark.parametrize("gh,gw,k,n", [
-    (16, 16, 2, 20000), (21, 28, 2, 5000), (21, 28, 5, 5000), (7, 9, 5, 33)])
-def test_window_kernels_match_plain(card, gh, gw, k, n):
-    j_win, base, tangent, ws, w = _window_inputs(card, gh, gw, k, n, seed=k)
+# The largest square grid whose K=5 block-diagonal reduction fits in one
+# block's shared memory (ba/window_cuda.reduction_smem_bytes): the compact
+# layout.  The ring's largest is 48.
+K5_MAX_GRID = 58
+
+
+@pytest.mark.parametrize("gh,gw,k,n,bases", [
+    (16, 16, 2, 20000, "random"), (21, 28, 2, 5000, "random"),
+    (21, 28, 5, 5000, "random"), (7, 9, 5, 33, "random"),
+    # ragged last tile with N % 4 == 1: 4-byte copies, unaligned rows
+    (16, 16, 2, 20001, "random"), (21, 28, 5, 5001, "random"),
+    (16, 16, 2, 33, "random"),
+    # one window hit by every observation of every tile
+    (16, 16, 2, 20000, "same"), (21, 28, 5, 5000, "same"),
+    # every window off the grid: the outputs are exactly zero
+    (16, 16, 2, 5000, "outside"),
+    # the pipeline's default grid for a 1080p camera (25 px cells)
+    (45, 79, 2, 50000, "random"),
+    # block diagonals in the compact layout (past the ring): K=5 at 56x56
+    # and K=2 at 128x128, the largest square grids of the earlier
+    # single-stage kernel, and K=5 at the largest of all
+    (56, 56, 5, 20000, "random"), (128, 128, 2, 20000, "random"),
+    (K5_MAX_GRID, K5_MAX_GRID, 5, 20001, "random"),
+])
+def test_window_kernels_match_plain(card, gh, gw, k, n, bases):
+    j_win, base, tangent, ws, w = _window_inputs(card, gh, gw, k, n, seed=k,
+                                                 bases=bases)
     d = [t.double() for t in (j_win, tangent, ws, w)]
     cases = (
         ("window_apply_j", lambda: wc.window_apply_j(j_win, base, tangent),
@@ -83,7 +112,10 @@ def test_window_kernels_match_plain(card, gh, gw, k, n):
         torch.cuda.synchronize()
         assert _cuda.launches[name] == before + 2
         assert got.dtype == torch.float32 and got.shape == ref.shape
-        assert _rel(got, ref) <= WINDOW_REL, name
+        if bases == "outside":
+            assert torch.count_nonzero(got) == 0, name
+        else:
+            assert _rel(got, ref) <= WINDOW_REL, name
         assert torch.equal(got, again), f"{name} is not repeatable"
 
 
@@ -125,6 +157,32 @@ def test_projection_kernels_match_plain(card, gh, gw):
     assert _rel(bk[3][:, same], bp[3][:, same]) <= 1e-3
 
 
+def test_window_apply_jtw_compact_layout(card):
+    """J^T W s on a grid past its ring (K=2, 160x160), where the block
+    diagonal does not fit at all."""
+    gh = gw = 160
+    assert wc.reduction_layout(gh, gw, 2, 2) == wc.COMPACT
+    j_win, base, _, ws, _ = _window_inputs(card, gh, gw, 2, 20001, seed=3)
+    ref = wc.window_apply_jtw_plain(j_win.double(), base, ws.double(), gh, gw, 2)
+    got = wc.window_apply_jtw(j_win, base, ws, gh, gw, 2)
+    again = wc.window_apply_jtw(j_win, base, ws, gh, gw, 2)
+    assert _rel(got, ref) <= WINDOW_REL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name,per_knot", [("window_apply_jtw", lambda k: k),
+                                           ("window_block_diag",
+                                            lambda k: k * (k + 1) // 2)])
+def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot):
+    """The Python reckoning equals the library's own, in both layouts."""
+    entry = getattr(_cuda.lib(), f"cct_{name}_smem_bytes")
+    for k in wc.SUPPORTED_K:
+        for gh, gw in ((16, 16), (45, 79), (48, 48), (56, 56), (58, 58),
+                       (84, 84), (102, 102), (127, 127), (128, 128), (160, 160)):
+            assert entry(k, gh, gw) == wc.reduction_smem_bytes(
+                gh, gw, k, per_knot(k)), (k, gh, gw)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     j_win, base, tangent, ws, w = _window_inputs(card, 16, 16, 2, 64, seed=0)
     with pytest.raises(TypeError):
@@ -141,6 +199,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     g0 = torch.tensor([[75.0, 75.0]], device=card)
     with pytest.raises(ValueError, match="shared memory"):
         cgc.project_grid_coords(big.grid, dirs, g0, (1, 1), (148, 148), 4, 1e-10)
+    # one grid row and column more than the K=5 block diagonal takes
+    g = K5_MAX_GRID + 1
+    j5, b5, _, _, w5 = _window_inputs(card, g, g, 5, 64, seed=0)
+    before = _cuda.launches["window_block_diag"]
+    with pytest.raises(ValueError, match="shared memory"):
+        wc.window_block_diag(j5, b5, w5, g, g, 5)
+    assert _cuda.launches["window_block_diag"] == before
 
 
 def test_lm_step_through_kernels_matches_plain(card, monkeypatch):

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no reference package.
 
-An AST scan of every Python file of ``camera_calibration_torch/`` and of
-``chip_smoke.py`` fails on any import of ``jax`` or
+An AST scan of every Python file of ``camera_calibration_torch/``, of
+``chip_smoke.py`` and of the card tools in ``tools/`` fails on any import of ``jax`` or
 ``camera_calibration_tpu`` (``import``, ``from ... import``,
 ``__import__`` and ``importlib.import_module`` with a literal name).  A
 fresh interpreter then imports every module of the port and checks that
@@ -24,7 +24,8 @@ FORBIDDEN = ("jax", "camera_calibration_tpu")
 
 
 def _files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "tools").glob("*.py")))
 
 
 def _imported_names(tree):
