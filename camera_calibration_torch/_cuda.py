@@ -64,6 +64,12 @@ SIGNATURES = {
     # out, stream
     "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _I,
                               _P, _P],
+    # blocks (0: cct_project, 1: cct_project_blocks), gh, gw: the kernel's
+    # blocks that fit on one SM, its threads per block, one block's shared
+    # memory
+    "cct_project_blocks_per_sm": [_I, _I, _I],
+    "cct_project_threads": [_I, _I, _I],
+    "cct_project_smem_bytes": [_I, _I, _I],
     # k, gh, gw: blocks of the reduction's partial pass that fit on one SM
     "cct_window_apply_jtw_blocks_per_sm": [_I, _I, _I],
     "cct_window_block_diag_blocks_per_sm": [_I, _I, _I],
@@ -74,6 +80,7 @@ SIGNATURES = {
 
 # Entry points that return another type than an int status or count.
 RESTYPES = {
+    "cct_project_smem_bytes": ctypes.c_longlong,
     "cct_window_apply_jtw_smem_bytes": ctypes.c_longlong,
     "cct_window_block_diag_smem_bytes": ctypes.c_longlong,
 }
@@ -203,3 +210,14 @@ def require_cuda_f32(name: str, **tensors) -> None:
 
 def num_sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def persistent_blocks(n: int, tile: int, blocks_per_sm: int,
+                      num_sms: int) -> int:
+    """Blocks of a persistent kernel that walks N items in tiles of
+    ``tile``: at most as many as are resident on the card at once, and no
+    more than it takes to give every block the same number of tiles (but
+    for the last few)."""
+    tiles = -(-n // tile)
+    per_block = -(-tiles // (blocks_per_sm * num_sms))
+    return -(-tiles // per_block)

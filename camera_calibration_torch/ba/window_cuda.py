@@ -64,12 +64,8 @@ def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int) -> int:
 def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
                      num_sms: int) -> int:
     """Blocks of the reduction's partial pass for N observations in tiles
-    of ``tile``: at most as many as are resident on the card at once, and
-    no more than it takes to give every block the same number of tiles (but
-    for the last few)."""
-    tiles = -(-n // tile)
-    per_block = -(-tiles // (blocks_per_sm * num_sms))
-    return -(-tiles // per_block)
+    of ``tile`` (:func:`_cuda.persistent_blocks`)."""
+    return _cuda.persistent_blocks(n, tile, blocks_per_sm, num_sms)
 
 
 @functools.cache

@@ -1,11 +1,11 @@
-// CentralGeneric projection kernels: project_kernel<kBlocks>.
+// CentralGeneric projection kernels: project_kernel<kBlocks, kThreads>.
 //
 // Replaces the two Pallas projection kernels of the reference package,
 // camera_calibration_tpu/models/central_generic_pallas.py:
-//   project_kernel<false>  <-  _project_kernel (:163-173),
-//                              called by project_grid_coords_pallas (:341);
-//   project_kernel<true>   <-  _blocks_kernel (:176-290),
-//                              called by project_blocks_pallas (:388).
+//   project_kernel<false, *>  <-  _project_kernel (:163-173),
+//                                 called by project_grid_coords_pallas (:341);
+//   project_kernel<true, *>   <-  _blocks_kernel (:176-290),
+//                                 called by project_blocks_pallas (:388).
 // Both share the in-kernel LM loop of _lm_project_loop (:83-160).
 //
 // What it computes, per point n (one thread per point):
@@ -15,47 +15,122 @@
 //   halved on accept and doubled on reject; test steps are clamped to
 //   [lo, hi]; a point is done when its cost is below eps or after three
 //   rejects in a row, and then leaves the loop (a done point never moves).
-//   With kBlocks it then evaluates, at the optimum, the implicit-function
-//   sensitivities p_px = (U^T U)^-1 U^T / s, pn = p_px (I - n n^T)/|u| and
-//   the 4x4-window knot Jacobian
+//   The cost written is the cost at the final g.  With kBlocks it then
+//   evaluates, at the optimum, the implicit-function sensitivities
+//   p_px = (U^T U)^-1 U^T / s, pn = p_px (I - n n^T)/|u| and the
+//   4x4-window knot Jacobian
 //     j_win[i*32 + (y*4+x)*2 + j, n] = -w_y w_x (pn_i . frame_j(knot)).
 //   The reference kernel also returns pn, which its caller discards
 //   (residuals.py:166); this kernel does not write it.
-//   A knot of the window that lies outside the grid has weight 0 (never a
-//   clamped index), as in the dense one-hot form of the reference.
+//   A knot of the window that lies outside the grid has weight 0, as in the
+//   dense one-hot form of the reference.
 //
-// What bounds it on an H100: arithmetic.  Each LM iteration evaluates the
-// surface twice (with derivatives, then at the test point): 2 x 16 knots x
-// ~10 FLOP plus the 2x2 solve, about 450 FLOP per iteration, against 20 B
-// read and 12 B written per point (kBlocks: 20 B in, 4*(2+1+6+64+2) B
-// out).  The grid (and, for kBlocks, the two tangent-frame fields) is
-// staged once per block into shared memory, so every window read is an
-// on-chip read; outputs are written row-major (rows, N) with N contiguous,
-// so the stores of a warp coalesce.  The ragged last block is handled by a
-// bounds check.  No grid size is built in: shared memory is sized from
-// (gh, gw) at launch, and the wrapper refuses sizes above 227 KB.
+// What bounds it on an H100: the LM loop's instruction stream and its
+// latency (about 550 FLOP per iteration against 20 B read and 12 B written
+// per point); the blocks form also writes 4*(2+1+6+64+2) B per point, which
+// bounds it by bytes.  The design:
+// - One surface evaluation per iteration: the test point is evaluated with
+//   derivatives, and on accept that state is the next iteration's, so the
+//   loop never evaluates a point twice, and the final cost and the blocks
+//   tail's Jacobian come out of the loop.
+// - No IEEE division or square root: the 1/6 of the spline weights is
+//   folded into the polynomials, 1/|u| and the 2x2 solve's reciprocal are
+//   one MUFU instruction each (the build has no fast-math flag).
+// - The grid (and, for kBlocks, both frame fields) is staged once per block
+//   in shared memory as packed 12-byte knots; the 16 taps are straight-line
+//   code, each reading a clamped index with its weight zeroed outside the
+//   grid.
+// - Persistent blocks: as many as are resident on the card, each staging
+//   once and walking tiles of kThreads points with a stride; the warps of a
+//   block do not wait for each other after the staging, so one warp's
+//   stores overlap the loops of others.  Blocks of 256 threads where four
+//   fit in an SM's shared memory, else one block of 1024; both at 64
+//   registers a thread, 32 warps an SM.
+// Outputs are written row-major (rows, N) with N contiguous, so the stores
+// of a warp coalesce.  No grid size is built in: shared memory is sized
+// from (gh, gw) at launch, and the wrapper refuses sizes above 227 KB.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+// Shared memory one block may use on Hopper (227 KB), and one SM's (228 KB,
+// of which each resident block takes 1 KB for the system).
+constexpr size_t kMaxSmemBytes = 232448;
+constexpr size_t kSmSmemBytes = 233472;
+constexpr size_t kBlockReservedBytes = 1024;
 
-__device__ __forceinline__ void cubic_weights(float t, float w[4]) {
-  const float t2 = t * t, t3 = t2 * t, om = 1.0f - t;
-  w[0] = (om * om * om) / 6.0f;
-  w[1] = (3.0f * t3 - 6.0f * t2 + 4.0f) / 6.0f;
-  w[2] = (-3.0f * t3 + 3.0f * t2 + 3.0f * t + 1.0f) / 6.0f;
-  w[3] = t3 / 6.0f;
+// Shared memory of one block: the grid and, for the blocks form, the two
+// frame fields, 12 bytes a knot each.  Mirrored by project_smem_bytes in
+// models/central_generic_cuda.py.
+inline size_t smem_bytes(bool blocks, int gh, int gw) {
+  return (blocks ? 36 : 12) * static_cast<size_t>(gh) * gw;
 }
 
+// Threads per block: 256 where four such blocks fit in one SM's shared
+// memory, else 1024, so that an SM holds 32 warps either way.  Mirrored by
+// threads() in models/central_generic_cuda.py.
+inline int threads_per_block(bool blocks, int gh, int gw) {
+  return 4 * (smem_bytes(blocks, gh, gw) + kBlockReservedBytes) <=
+                 kSmSmemBytes
+             ? 256
+             : 1024;
+}
+
+struct Args {
+  const float* dirs;  // (N, 3)
+  const float* g0;    // (N, 2)
+  const float* grid;  // (gh, gw, 3)
+  const float* t1;    // (gh, gw, 3), kBlocks only
+  const float* t2;
+  int n, gh, gw;
+  float lo_x, lo_y, hi_x, hi_y;
+  int iters;
+  float eps, inv_sx, inv_sy;
+  float* g_out;     // (2, N)
+  float* cost_out;  // (N)
+  float* ppx_out;   // (6, N), kBlocks only
+  float* jwin_out;  // (64, N)
+  int* base_out;    // (2, N)
+};
+
+constexpr float kSixth = 1.0f / 6.0f;
+
+// Cubic B-spline weights of the fractional part t, with the 1/6 folded into
+// the polynomials: (1-t)^3/6, (3t^3 - 6t^2 + 4)/6, (-3t^3 + 3t^2 + 3t + 1)/6,
+// t^3/6.
+__device__ __forceinline__ void cubic_weights(float t, float w[4]) {
+  const float t2 = t * t, t3 = t2 * t, om = 1.0f - t;
+  w[0] = om * om * om * kSixth;
+  w[1] = 0.5f * t3 - t2 + 2.0f / 3.0f;
+  w[2] = 0.5f * (t + t2 - t3) + kSixth;
+  w[3] = t3 * kSixth;
+}
+
+// d/dt of cubic_weights.
 __device__ __forceinline__ void cubic_weight_derivs(float t, float d[4]) {
   const float t2 = t * t, om = 1.0f - t;
-  d[0] = -(om * om) / 2.0f;
-  d[1] = (9.0f * t2 - 12.0f * t) / 6.0f;
-  d[2] = (-9.0f * t2 + 6.0f * t + 3.0f) / 6.0f;
-  d[3] = t2 / 2.0f;
+  d[0] = -0.5f * om * om;
+  d[1] = 1.5f * t2 - 2.0f * t;
+  d[2] = -1.5f * t2 + t + 0.5f;
+  d[3] = 0.5f * t2;
+}
+
+// 1/x and 1/sqrt(x), one MUFU instruction each (1 ulp, and 2^-22.9
+// relative; denormal inputs read as 0).  The build has no fast-math flag,
+// so `1.0f / x` or `sqrtf` would compile to the IEEE-exact sequence with its
+// range check and slow path.  The reference kernel uses rsqrt as well.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // floor(g) held to a range where every window knot is outside the grid
@@ -64,233 +139,290 @@ __device__ __forceinline__ float safe_floor(float g) {
   return fminf(fmaxf(floorf(g), -1.0e6f), 1.0e6f);
 }
 
-// Surface value u (and, if kDerivs, du/dgx, du/dgy) at grid coords (gx, gy).
-template <bool kDerivs>
-__device__ void eval_surface(const float* __restrict__ sgrid, int gh, int gw,
-                             float gx, float gy, float u[3], float dux[3],
-                             float duy[3]) {
+// dst[i] = src[i] for i < count, four loads in flight per thread.
+__device__ __forceinline__ void copy_to_smem(float* dst,
+                                             const float* __restrict__ src,
+                                             int count) {
+  for (int i = threadIdx.x; i < count; i += 4 * blockDim.x) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = i + j * blockDim.x;
+      v[j] = k < count ? src[k] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = i + j * blockDim.x;
+      if (k < count) dst[k] = v[j];
+    }
+  }
+}
+
+// Surface value u and its derivatives du/dgx, du/dgy at grid coords
+// (gx, gy).  Each tap reads a knot index clamped into the grid; the weights
+// of taps outside it are 0.
+__device__ __forceinline__ void eval_surface(const float* __restrict__ sgrid,
+                                             int gh, int gw, float gx,
+                                             float gy, float u[3],
+                                             float dux[3], float duy[3]) {
   const float fx = safe_floor(gx), fy = safe_floor(gy);
   const int bx = static_cast<int>(fx) - 1, by = static_cast<int>(fy) - 1;
   float wx[4], wy[4], dwx[4], dwy[4];
   cubic_weights(gx - fx, wx);
   cubic_weights(gy - fy, wy);
-  if (kDerivs) {
-    cubic_weight_derivs(gx - fx, dwx);
-    cubic_weight_derivs(gy - fy, dwy);
+  cubic_weight_derivs(gx - fx, dwx);
+  cubic_weight_derivs(gy - fy, dwy);
+  int ox[4], oy[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool in_x = bx + i >= 0 && bx + i < gw;
+    const bool in_y = by + i >= 0 && by + i < gh;
+    ox[i] = min(max(bx + i, 0), gw - 1);
+    oy[i] = min(max(by + i, 0), gh - 1) * gw;
+    wx[i] = in_x ? wx[i] : 0.0f;
+    dwx[i] = in_x ? dwx[i] : 0.0f;
+    wy[i] = in_y ? wy[i] : 0.0f;
+    dwy[i] = in_y ? dwy[i] : 0.0f;
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) u[c] = dux[c] = duy[c] = 0.0f;
 #pragma unroll
   for (int y = 0; y < 4; ++y) {
-    const int ky = by + y;
-    if (ky < 0 || ky >= gh) continue;
     float row[3] = {0.0f, 0.0f, 0.0f}, drow[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const int kx = bx + x;
-      if (kx < 0 || kx >= gw) continue;
-      const float* k = sgrid + 3 * (ky * gw + kx);
+      const float* k = sgrid + 3 * (oy[y] + ox[x]);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         row[c] += wx[x] * k[c];
-        if (kDerivs) drow[c] += dwx[x] * k[c];
+        drow[c] += dwx[x] * k[c];
       }
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       u[c] += wy[y] * row[c];
-      if (kDerivs) {
-        dux[c] += wy[y] * drow[c];
-        duy[c] += dwy[y] * row[c];
-      }
+      dux[c] += wy[y] * drow[c];
+      duy[c] += dwy[y] * row[c];
     }
   }
 }
 
-__device__ __forceinline__ float dir_cost(const float* __restrict__ sgrid,
+// The surface at one point g: the normalized direction n, the columns
+// U[:, 0] = d n / d gx, U[:, 1] = d n / d gy, 1/|u|, and the cost
+// |n - d|^2.
+struct State {
+  float n[3], jx[3], jy[3], inv, cost;
+};
+
+__device__ __forceinline__ State state_at(const float* __restrict__ sgrid,
                                           int gh, int gw, float gx, float gy,
                                           const float d[3]) {
-  float u[3], unused0[3], unused1[3];
-  eval_surface<false>(sgrid, gh, gw, gx, gy, u, unused0, unused1);
-  const float inv = 1.0f / sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
-  float cost = 0.0f;
+  float u[3], dux[3], duy[3];
+  eval_surface(sgrid, gh, gw, gx, gy, u, dux, duy);
+  State s;
+  s.inv = rsqrt_approx(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) s.n[c] = u[c] * s.inv;
+  const float sx = s.n[0] * dux[0] + s.n[1] * dux[1] + s.n[2] * dux[2];
+  const float sy = s.n[0] * duy[0] + s.n[1] * duy[1] + s.n[2] * duy[2];
+  s.cost = 0.0f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float r = u[c] * inv - d[c];
-    cost += r * r;
+    s.jx[c] = (dux[c] - s.n[c] * sx) * s.inv;
+    s.jy[c] = (duy[c] - s.n[c] * sy) * s.inv;
+    const float r = s.n[c] - d[c];
+    s.cost += r * r;
   }
-  return cost;
+  return s;
 }
 
-// Columns U[:, 0] = d un / d gx, U[:, 1] = d un / d gy of the normalized
-// surface, with un itself and 1/|u|.
-__device__ __forceinline__ void normalized_jacobian(
-    const float u[3], const float dux[3], const float duy[3], float n[3],
-    float ux[3], float uy[3], float* inv_out) {
-  const float inv = 1.0f / sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) n[c] = u[c] * inv;
-  const float sx = n[0] * dux[0] + n[1] * dux[1] + n[2] * dux[2];
-  const float sy = n[0] * duy[0] + n[1] * duy[1] + n[2] * duy[2];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    ux[c] = (dux[c] - n[c] * sx) * inv;
-    uy[c] = (duy[c] - n[c] * sy) * inv;
-  }
-  *inv_out = inv;
-}
-
+// Everything for point n.  The loop evaluates the surface once per
+// iteration, at the test point: on accept that state is the next
+// iteration's, on reject the current one stays.
 template <bool kBlocks>
-__global__ void __launch_bounds__(kThreads)
-project_kernel(const float* __restrict__ dirs, const float* __restrict__ g0,
-               const float* __restrict__ grid, const float* __restrict__ t1,
-               const float* __restrict__ t2, int n_pts, int gh, int gw,
-               float lo_x, float lo_y, float hi_x, float hi_y, int iters,
-               float eps, float inv_sx, float inv_sy,
-               float* __restrict__ g_out, float* __restrict__ cost_out,
-               float* __restrict__ ppx_out, float* __restrict__ jwin_out,
-               int* __restrict__ base_out) {
-  extern __shared__ float smem[];
-  const int cells3 = 3 * gh * gw;
-  float* sgrid = smem;
-  float* st1 = smem + cells3;
-  float* st2 = smem + 2 * cells3;
-  for (int i = threadIdx.x; i < cells3; i += blockDim.x) {
-    sgrid[i] = grid[i];
-    if (kBlocks) {
-      st1[i] = t1[i];
-      st2[i] = t2[i];
-    }
-  }
-  __syncthreads();
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_pts) return;
-  const size_t N = static_cast<size_t>(n_pts);
-  const float d[3] = {dirs[3 * n], dirs[3 * n + 1], dirs[3 * n + 2]};
-  float gx = g0[2 * n], gy = g0[2 * n + 1];
+__device__ __forceinline__ void project_point(const Args a,
+                                              const float* __restrict__ sgrid,
+                                              int n) {
+  const int gh = a.gh, gw = a.gw;
+  const size_t N = static_cast<size_t>(a.n), idx = static_cast<size_t>(n);
+  const float d[3] = {a.dirs[3 * idx], a.dirs[3 * idx + 1],
+                      a.dirs[3 * idx + 2]};
+  float gx = a.g0[2 * idx], gy = a.g0[2 * idx + 1];
   float lam = -1.0f;
   int rejects = 0;
-  float u[3], dux[3], duy[3], nv[3], jx[3], jy[3], inv;
+  State s = state_at(sgrid, gh, gw, gx, gy, d);
 
-  for (int it = 0; it < iters; ++it) {
-    eval_surface<true>(sgrid, gh, gw, gx, gy, u, dux, duy);
-    normalized_jacobian(u, dux, duy, nv, jx, jy, &inv);
-    float cost = 0.0f, b0 = 0.0f, b1 = 0.0f;
-    float h00 = 0.0f, h11 = 0.0f, h01 = 0.0f;
+  for (int it = 0; it < a.iters; ++it) {
+    float b0 = 0.0f, b1 = 0.0f, h00 = 0.0f, h11 = 0.0f, h01 = 0.0f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float r = nv[c] - d[c];
-      cost += r * r;
-      b0 += jx[c] * r;
-      b1 += jy[c] * r;
-      h00 += jx[c] * jx[c];
-      h11 += jy[c] * jy[c];
-      h01 += jx[c] * jy[c];
+      const float r = s.n[c] - d[c];
+      b0 += s.jx[c] * r;
+      b1 += s.jy[c] * r;
+      h00 += s.jx[c] * s.jx[c];
+      h11 += s.jy[c] * s.jy[c];
+      h01 += s.jx[c] * s.jy[c];
     }
     if (lam < 0.0f) lam = 0.01f * (0.5f * (h00 + h11));
     const float a00 = h00 + lam, a11 = h11 + lam;
     const float det = a00 * a11 - h01 * h01;
-    const float inv_det = fabsf(det) > 1e-30f ? 1.0f / det : 0.0f;
+    const float inv_det = fabsf(det) > 1e-30f ? rcp_approx(det) : 0.0f;
     const float s0 = (a11 * b0 - h01 * b1) * inv_det;
     const float s1 = (a00 * b1 - h01 * b0) * inv_det;
-    const float tx = fminf(fmaxf(gx - s0, lo_x), hi_x);
-    const float ty = fminf(fmaxf(gy - s1, lo_y), hi_y);
-    if (dir_cost(sgrid, gh, gw, tx, ty, d) < cost) {
+    const float tx = fminf(fmaxf(gx - s0, a.lo_x), a.hi_x);
+    const float ty = fminf(fmaxf(gy - s1, a.lo_y), a.hi_y);
+    const State t = state_at(sgrid, gh, gw, tx, ty, d);
+    const float cost = s.cost;
+    if (t.cost < cost) {
       gx = tx;
       gy = ty;
+      s = t;
       lam *= 0.5f;
       rejects = 0;
     } else {
       lam *= 2.0f;
       ++rejects;
     }
-    if (cost < eps || rejects >= 3) break;
+    if (cost < a.eps || rejects >= 3) break;
   }
-  g_out[n] = gx;
-  g_out[N + n] = gy;
-  cost_out[n] = dir_cost(sgrid, gh, gw, gx, gy, d);
+  a.g_out[n] = gx;
+  a.g_out[N + n] = gy;
+  a.cost_out[n] = s.cost;
   if (!kBlocks) return;
 
   // ---- implicit-function-theorem sensitivities at the optimum ----
-  eval_surface<true>(sgrid, gh, gw, gx, gy, u, dux, duy);
-  normalized_jacobian(u, dux, duy, nv, jx, jy, &inv);
-  const float a00 = jx[0] * jx[0] + jx[1] * jx[1] + jx[2] * jx[2];
-  const float a11 = jy[0] * jy[0] + jy[1] * jy[1] + jy[2] * jy[2];
-  const float a01 = jx[0] * jy[0] + jx[1] * jy[1] + jx[2] * jy[2];
+  const float a00 = s.jx[0] * s.jx[0] + s.jx[1] * s.jx[1] + s.jx[2] * s.jx[2];
+  const float a11 = s.jy[0] * s.jy[0] + s.jy[1] * s.jy[1] + s.jy[2] * s.jy[2];
+  const float a01 = s.jx[0] * s.jy[0] + s.jx[1] * s.jy[1] + s.jx[2] * s.jy[2];
   const float det = a00 * a11 - a01 * a01;
-  const float inv_det = fabsf(det) > 1e-30f ? 1.0f / det : 0.0f;
+  const float inv_det = fabsf(det) > 1e-30f ? rcp_approx(det) : 0.0f;
   float p[2][3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    p[0][c] = (a11 * jx[c] - a01 * jy[c]) * inv_det * inv_sx;
-    p[1][c] = (a00 * jy[c] - a01 * jx[c]) * inv_det * inv_sy;
-    ppx_out[c * N + n] = p[0][c];
-    ppx_out[(3 + c) * N + n] = p[1][c];
+    p[0][c] = (a11 * s.jx[c] - a01 * s.jy[c]) * inv_det * a.inv_sx;
+    p[1][c] = (a00 * s.jy[c] - a01 * s.jx[c]) * inv_det * a.inv_sy;
+    a.ppx_out[c * N + n] = p[0][c];
+    a.ppx_out[(3 + c) * N + n] = p[1][c];
   }
   float pn[2][3];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float pd = p[i][0] * nv[0] + p[i][1] * nv[1] + p[i][2] * nv[2];
+    const float pd = p[i][0] * s.n[0] + p[i][1] * s.n[1] + p[i][2] * s.n[2];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) pn[i][c] = (p[i][c] - pd * nv[c]) * inv;
+    for (int c = 0; c < 3; ++c) pn[i][c] = (p[i][c] - pd * s.n[c]) * s.inv;
   }
 
   // ---- window base + per-knot Jacobian rows ----
   const float fx = safe_floor(gx), fy = safe_floor(gy);
   const int bx = static_cast<int>(fx) - 1, by = static_cast<int>(fy) - 1;
-  base_out[n] = bx;
-  base_out[N + n] = by;
+  a.base_out[n] = bx;
+  a.base_out[N + n] = by;
   float wx[4], wy[4];
   cubic_weights(gx - fx, wx);
   cubic_weights(gy - fy, wy);
+  const float* st1 = sgrid + 3 * gh * gw;
+  const float* st2 = st1 + 3 * gh * gw;
 #pragma unroll
   for (int y = 0; y < 4; ++y) {
     const int ky = by + y;
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       const int kx = bx + x;
-      float f1[3] = {0.0f, 0.0f, 0.0f}, f2[3] = {0.0f, 0.0f, 0.0f};
-      float wgt = 0.0f;
-      if (ky >= 0 && ky < gh && kx >= 0 && kx < gw) {
-        const int k = 3 * (ky * gw + kx);
-        wgt = wy[y] * wx[x];
+      // A knot outside the grid reads a clamped one and weighs 0.
+      const bool inside = ky >= 0 && ky < gh && kx >= 0 && kx < gw;
+      const float wgt = inside ? wy[y] * wx[x] : 0.0f;
+      const int k = 3 * (min(max(ky, 0), gh - 1) * gw + min(max(kx, 0), gw - 1));
+      float f1[3], f2[3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          f1[c] = st1[k + c];
-          f2[c] = st2[k + c];
-        }
+      for (int c = 0; c < 3; ++c) {
+        f1[c] = st1[k + c];
+        f2[c] = st2[k + c];
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = i * 32 + (y * 4 + x) * 2;
-        jwin_out[row * N + n] =
+        a.jwin_out[row * N + n] =
             -wgt * (pn[i][0] * f1[0] + pn[i][1] * f1[1] + pn[i][2] * f1[2]);
-        jwin_out[(row + 1) * N + n] =
+        a.jwin_out[(row + 1) * N + n] =
             -wgt * (pn[i][0] * f2[0] + pn[i][1] * f2[1] + pn[i][2] * f2[2]);
       }
     }
   }
 }
 
-template <bool kBlocks>
-cudaError_t launch(const float* dirs, const float* g0, const float* grid,
-                   const float* t1, const float* t2, int n, int gh, int gw,
-                   float lo_x, float lo_y, float hi_x, float hi_y, int iters,
-                   float eps, float inv_sx, float inv_sy, float* g_out,
-                   float* cost_out, float* ppx_out, float* jwin_out,
-                   int* base_out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 3 * gh * gw * (kBlocks ? 3 : 1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        project_kernel<kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// Persistent blocks: each stages the grid (and the frames) once, then takes
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... of kThreads points.
+// Registers are held to 64 a thread, so that an SM holds 32 warps.
+template <bool kBlocks, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    project_kernel(const Args a) {
+  extern __shared__ __align__(16) float sgrid[];
+  const int cells3 = 3 * a.gh * a.gw;
+  copy_to_smem(sgrid, a.grid, cells3);
+  if (kBlocks) {
+    copy_to_smem(sgrid + cells3, a.t1, cells3);
+    copy_to_smem(sgrid + 2 * cells3, a.t2, cells3);
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  project_kernel<kBlocks><<<blocks, kThreads, smem, stream>>>(
-      dirs, g0, grid, t1, t2, n, gh, gw, lo_x, lo_y, hi_x, hi_y, iters, eps,
-      inv_sx, inv_sy, g_out, cost_out, ppx_out, jwin_out, base_out);
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long n = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       n < a.n; n += stride)
+    project_point<kBlocks>(a, sgrid, static_cast<int>(n));
+}
+
+// Sets the kernel's shared-memory size and returns its resident blocks per
+// SM (0 if none fits).
+template <bool kBlocks, int kThreads>
+int resident_blocks(size_t smem) {
+  if (smem > kMaxSmemBytes) return 0;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(project_kernel<kBlocks, kThreads>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, project_kernel<kBlocks, kThreads>, kThreads, smem) !=
+      cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+template <bool kBlocks>
+int blocks_per_sm(int gh, int gw) {
+  const size_t smem = smem_bytes(kBlocks, gh, gw);
+  return threads_per_block(kBlocks, gh, gw) == 256
+             ? resident_blocks<kBlocks, 256>(smem)
+             : resident_blocks<kBlocks, 1024>(smem);
+}
+
+// The persistent grid: at most the blocks resident on the card at once, and
+// no more than it takes to give every block the same number of tiles (but
+// for the last few).  Mirrored by _cuda.persistent_blocks.
+inline int persistent_blocks(int n, int tile, int per_sm, int sms) {
+  const int tiles = (n - 1) / tile + 1;  // n > 0
+  const int per_block = (tiles + per_sm * sms - 1) / (per_sm * sms);
+  return (tiles + per_block - 1) / per_block;
+}
+
+template <bool kBlocks>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.n <= 0) return cudaSuccess;
+  const int per_sm = blocks_per_sm<kBlocks>(a.gh, a.gw);
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes(kBlocks, a.gh, a.gw);
+  const int threads = threads_per_block(kBlocks, a.gh, a.gw);
+  const int blocks = persistent_blocks(a.n, threads, per_sm, sms);
+  if (threads == 256)
+    project_kernel<kBlocks, 256><<<blocks, 256, smem, stream>>>(a);
+  else
+    project_kernel<kBlocks, 1024><<<blocks, 1024, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -300,12 +432,12 @@ extern "C" int cct_project(const void* dirs, const void* g0, const void* grid,
                            int n, int gh, int gw, float lo_x, float lo_y,
                            float hi_x, float hi_y, int iters, float eps,
                            void* g_out, void* cost_out, void* stream) {
-  return static_cast<int>(launch<false>(
-      static_cast<const float*>(dirs), static_cast<const float*>(g0),
-      static_cast<const float*>(grid), nullptr, nullptr, n, gh, gw, lo_x,
-      lo_y, hi_x, hi_y, iters, eps, 1.0f, 1.0f, static_cast<float*>(g_out),
-      static_cast<float*>(cost_out), nullptr, nullptr, nullptr,
-      static_cast<cudaStream_t>(stream)));
+  Args a{static_cast<const float*>(dirs), static_cast<const float*>(g0),
+         static_cast<const float*>(grid), nullptr, nullptr, n, gh, gw,
+         lo_x, lo_y, hi_x, hi_y, iters, eps, 1.0f, 1.0f,
+         static_cast<float*>(g_out), static_cast<float*>(cost_out), nullptr,
+         nullptr, nullptr};
+  return static_cast<int>(launch<false>(a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int cct_project_blocks(const void* dirs, const void* g0,
@@ -317,12 +449,30 @@ extern "C" int cct_project_blocks(const void* dirs, const void* g0,
                                   void* cost_out, void* ppx_out,
                                   void* jwin_out, void* base_out,
                                   void* stream) {
-  return static_cast<int>(launch<true>(
-      static_cast<const float*>(dirs), static_cast<const float*>(g0),
-      static_cast<const float*>(grid), static_cast<const float*>(t1),
-      static_cast<const float*>(t2), n, gh, gw, lo_x, lo_y, hi_x, hi_y, iters,
-      eps, inv_sx, inv_sy, static_cast<float*>(g_out),
-      static_cast<float*>(cost_out), static_cast<float*>(ppx_out),
-      static_cast<float*>(jwin_out), static_cast<int*>(base_out),
-      static_cast<cudaStream_t>(stream)));
+  Args a{static_cast<const float*>(dirs), static_cast<const float*>(g0),
+         static_cast<const float*>(grid), static_cast<const float*>(t1),
+         static_cast<const float*>(t2), n, gh, gw, lo_x, lo_y, hi_x, hi_y,
+         iters, eps, inv_sx, inv_sy, static_cast<float*>(g_out),
+         static_cast<float*>(cost_out), static_cast<float*>(ppx_out),
+         static_cast<float*>(jwin_out), static_cast<int*>(base_out)};
+  return static_cast<int>(launch<true>(a, static_cast<cudaStream_t>(stream)));
+}
+
+// Blocks of cct_project (blocks = 0) or cct_project_blocks (blocks = 1)
+// resident on one SM at this grid, in the block size it launches with (0 if
+// none fits).
+extern "C" int cct_project_blocks_per_sm(int blocks, int gh, int gw) {
+  return blocks ? blocks_per_sm<true>(gh, gw) : blocks_per_sm<false>(gh, gw);
+}
+
+// Threads per block of cct_project (blocks = 0) or cct_project_blocks
+// (blocks = 1) at this grid.
+extern "C" int cct_project_threads(int blocks, int gh, int gw) {
+  return threads_per_block(blocks != 0, gh, gw);
+}
+
+// Shared memory of one block of cct_project (blocks = 0) or
+// cct_project_blocks (blocks = 1) at this grid.
+extern "C" long long cct_project_smem_bytes(int blocks, int gh, int gw) {
+  return static_cast<long long>(smem_bytes(blocks != 0, gh, gw));
 }

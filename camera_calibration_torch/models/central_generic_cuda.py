@@ -21,11 +21,56 @@ the dense one-hot contraction.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from camera_calibration_torch import _cuda
 from camera_calibration_torch.ops import bspline
 from camera_calibration_torch.ops.linalg import solve2x2
+
+
+# Shared memory of one SM (228 KB), and what each resident block takes of
+# it for the system (``kSmSmemBytes``, ``kBlockReservedBytes`` in
+# ``csrc/project.cu``).
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+
+
+def project_smem_bytes(gh: int, gw: int, blocks: bool = False) -> int:
+    """Shared memory of one block of ``project_kernel<blocks>``
+    (``cct_project_smem_bytes``): the grid and, for the blocks form, both
+    frame fields, as packed 12-byte knots."""
+    return (36 if blocks else 12) * gh * gw
+
+
+def threads(gh: int, gw: int, blocks: bool = False) -> int:
+    """Threads per block of ``project_kernel<blocks>`` at this grid, one
+    point each (``threads_per_block``): 256 where four such blocks fit in
+    one SM's shared memory, else 1024."""
+    need = 4 * (project_smem_bytes(gh, gw, blocks) + BLOCK_RESERVED_BYTES)
+    return 256 if need <= SM_SMEM_BYTES else 1024
+
+
+@functools.cache
+def resident_blocks(blocks: bool, gh: int, gw: int, device_index: int) -> int:
+    """Blocks of ``project_kernel<blocks>`` that one SM holds at once at
+    this grid (``cct_project_blocks_per_sm``)."""
+    with torch.cuda.device(device_index):
+        per_sm = _cuda.lib().cct_project_blocks_per_sm(int(blocks), gh, gw)
+    if per_sm <= 0:
+        raise RuntimeError(f"no projection block fits on an SM at {gh}x{gw}")
+    return per_sm
+
+
+def launch_shape(blocks: bool, n: int, gh: int, gw: int, device) -> tuple:
+    """(blocks per SM, blocks launched) of the persistent projection kernel
+    for N points at this grid, in blocks of :func:`threads`: the grid the C
+    launch computes."""
+    dev = torch.device(device)
+    per_sm = resident_blocks(blocks, gh, gw, dev.index or 0)
+    return per_sm, _cuda.persistent_blocks(n, threads(gh, gw, blocks),
+                                           per_sm, _cuda.num_sms(dev))
 
 
 # ------------------------------ plain versions ------------------------------
@@ -170,7 +215,7 @@ def project_grid_coords(grid, dirs, g0, lo, hi, max_iterations, eps):
     _cuda.require_cuda_f32(name, grid=grid, dirs=dirs, g0=g0)
     n = _check_shapes(name, grid, dirs, g0)
     gh, gw = grid.shape[:2]
-    _cuda.check_smem(gh * gw * 3 * 4, name)
+    _cuda.check_smem(project_smem_bytes(gh, gw), name)
     g_out = torch.empty((2, n), dtype=torch.float32, device=dirs.device)
     cost = torch.empty((n,), dtype=torch.float32, device=dirs.device)
     if n:
@@ -197,7 +242,7 @@ def project_blocks(grid, t1, t2, dirs, g0, lo, hi, inv_scale, max_iterations,
     if t1.shape != grid.shape or t2.shape != grid.shape:
         raise ValueError(f"{name}: frames must have the grid's shape")
     gh, gw = grid.shape[:2]
-    _cuda.check_smem(gh * gw * 9 * 4, name)
+    _cuda.check_smem(project_smem_bytes(gh, gw, blocks=True), name)
     dev = dirs.device
     g_out = torch.empty((2, n), dtype=torch.float32, device=dev)
     cost = torch.empty((n,), dtype=torch.float32, device=dev)

@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from camera_calibration_torch.ba.dataset import ObservationTable
-from camera_calibration_torch.ba.state import BAState
+from camera_calibration_torch.ba.state import (
+    BAState, broadcast_rows, transform_to_camera,
+)
 from camera_calibration_torch.config import default_device
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.ops import se3
@@ -101,3 +103,31 @@ def perturb_bench_state(state: BAState, seed) -> BAState:
         cam_q_rig=state.cam_q_rig, cam_t_rig=state.cam_t_rig,
         points=points, intrinsics=state.intrinsics,
     )
+
+
+def bench_projection_inputs(state: BAState, table):
+    """The projection inputs of the bench problem's main path: unit camera
+    directions (N, 3) of every observation row and the warm starts (N, 2)
+    in grid coords (the observed pixels)."""
+    model = state.intrinsics[0]
+    x = broadcast_rows(state.points, table.point, table.grid_shape, 1)
+    x_cam, _ = transform_to_camera(state, table.imageset, table.camera, x,
+                                   grid_shape=table.grid_shape)
+    norm = torch.linalg.vector_norm(x_cam, dim=-1, keepdim=True)
+    dirs = (x_cam / torch.clamp_min(norm, 1e-18)).contiguous()
+    return dirs, cg.pixel_to_grid(model, table.pixel).contiguous()
+
+
+def pinhole_projection_inputs(model, n, rng):
+    """Projection inputs of N uniform random pixels of a
+    :func:`pinhole_model` (2 px from its edges): their unit directions
+    (N, 3) and warm starts (N, 2) in grid coords, the pixels moved by
+    normal noise of 2 px (numpy ``rng``)."""
+    dev = model.grid.device
+    w, h = model.width, model.height
+    pix = torch.as_tensor(rng.uniform([2, 2], [w - 2, h - 2], (n, 2)),
+                          dtype=torch.float32, device=dev)
+    dirs, _ = cg.unproject(model, pix)
+    warm = pix + torch.as_tensor(rng.normal(0, 2.0, (n, 2)),
+                                 dtype=torch.float32, device=dev)
+    return dirs.contiguous(), cg.pixel_to_grid(model, warm).contiguous()

@@ -9,11 +9,14 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
 1. prints the card's name and power limit;
 2. builds the hand-written kernels from ``camera_calibration_torch/csrc``
    and prints what ``ptxas -v`` says of each (registers, shared memory,
-   spills);
+   spills), and the shared memory, block size, blocks per SM and
+   persistent grid of both projection kernels at the bench grid and at
+   45×79;
 3. holds every kernel against its plain PyTorch version on the card, at the
    shapes of the benchmark problem's main path (262,144 observations, 16×16
-   grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera,
-   and with K = 5 window Jacobians;
+   grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera
+   (the window ops on random inputs, the projections on 262,144 random
+   pixels of a 1920×1080 pinhole camera), and with K = 5 window Jacobians;
 4. drives the main path: ``optimize`` on the full-size benchmark problem in
    the two-pass form and in the cached-blocks form, with the launch counts
    set to 0 just before and read just after, checks that every kernel ran
@@ -24,8 +27,9 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    calls from Python (``ms``, ``plain_ms``, ``library_ms``), and every
    kernel again as one replay of a CUDA graph of 100 calls (``graph_ms``:
    the card's time alone, without the host's per-call cost); the two
-   window reductions also at K = 5 (16×16) and at 45×79; and the LM
-   iterations per second of both step forms with the host clock;
+   window reductions also at K = 5 (16×16) and at 45×79, the two
+   projections also at 45×79; and the LM iterations per second of both
+   step forms with the host clock;
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
@@ -69,6 +73,9 @@ PROJ_PX_TOL = 1e-2
 PROJ_FLIP_FRACTION = 1e-3
 BLOCKS_REL_TOL = 1e-3
 STEP_REL_TOL = 1e-3
+
+# Points of the 1080p projection case ([3], [5]): as many as the bench rows.
+N_PROJECTION = 262_144
 
 
 def log(*args):
@@ -114,6 +121,18 @@ def time_ms(torch, fn, reps, warmup=2, graph=False):
     return start.elapsed_time(end) / reps
 
 
+def projection_work(n, grid_bytes, loop_flop, blocks):
+    """(bytes, FLOP) of one projection call on N points: the directions and
+    warm starts read, the grid (and, for the blocks form, both frame fields)
+    read once, the outputs written; the LM loop's FLOP, the final cost and,
+    for the blocks form, the tail."""
+    if not blocks:
+        return (n * (3 + 2) * 4 + grid_bytes + n * (2 + 1) * 4,
+                loop_flop + FLOP_FINAL_COST * n)
+    return (n * (3 + 2) * 4 + 3 * grid_bytes + n * (2 + 1 + 6 + 64 + 2) * 4,
+            loop_flop + (FLOP_FINAL_COST + FLOP_BLOCKS_TAIL) * n)
+
+
 def bound_ms(nbytes, flops):
     """The least time for the work: bytes over HBM rate or FLOP over the
     float32 rate, whichever is larger; and which one it is."""
@@ -151,9 +170,6 @@ def main() -> int:
     from camera_calibration_torch import _cuda, problems
     from camera_calibration_torch.ba import lm_pcg
     from camera_calibration_torch.ba import window_cuda as wc
-    from camera_calibration_torch.ba.state import (
-        broadcast_rows, transform_to_camera,
-    )
     from camera_calibration_torch.models import central_generic as cg
     from camera_calibration_torch.models import central_generic_cuda as cgc
     from camera_calibration_torch.ops import manifolds
@@ -174,6 +190,15 @@ def main() -> int:
     for line in _cuda.build_log().splitlines():
         if line.startswith("==") or "ptxas info" in line or "spill" in line:
             log("    " + line.strip())
+    for gh_, gw_ in ((16, 16), (45, 79)):
+        for blocks in (False, True):
+            per_sm, nblocks = cgc.launch_shape(blocks, N_PROJECTION, gh_,
+                                               gw_, dev)
+            log(f"[2] {'project_blocks' if blocks else 'project'} at "
+                f"{gh_}x{gw_}: {cgc.project_smem_bytes(gh_, gw_, blocks)} B "
+                f"shared, {per_sm} blocks of {cgc.threads(gh_, gw_, blocks)} "
+                f"threads per SM, {nblocks} persistent blocks for "
+                f"{N_PROJECTION} points on {_cuda.num_sms(dev)} SMs")
 
     # ------------------------------------------ 3. kernels vs plain versions
     rng = np.random.default_rng(0)
@@ -184,14 +209,6 @@ def main() -> int:
     n_obs = seg.count
     log(f"[3] bench problem: {n_obs} rows, {meta['n_obs']} valid "
         f"observations, {model.grid_height}x{model.grid_width} grid")
-
-    def projection_inputs(st, sg, mdl):
-        x = broadcast_rows(st.points, sg.point, sg.grid_shape, 1)
-        x_cam, _ = transform_to_camera(st, sg.imageset, sg.camera, x,
-                                       grid_shape=sg.grid_shape)
-        norm = torch.linalg.vector_norm(x_cam, dim=-1, keepdim=True)
-        d = (x_cam / torch.clamp_min(norm, 1e-18)).contiguous()
-        return d, cg.pixel_to_grid(mdl, sg.pixel).contiguous()
 
     def check_project(mdl, d, g0, iters, label):
         """Kernel vs plain projection.  Both run the same float32 iteration;
@@ -295,7 +312,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     max_abs = {}
-    d0, g00 = projection_inputs(state, seg, model)
+    d0, g00 = problems.bench_projection_inputs(state, seg)
     max_abs["project"] = check_project(model, d0, g00, options.proj_iterations,
                                        "bench 16x16")
     max_abs["project_blocks"] = check_blocks(
@@ -311,16 +328,16 @@ def main() -> int:
     gh2, gw2 = 21, 28
     small = problems.pinhole_model(640, 480, gw2, gh2, device=dev)
     n2 = 50_000
-    pix = torch.as_tensor(rng.uniform([2, 2], [638, 478], (n2, 2)),
-                          dtype=torch.float32, device=dev)
-    dirs2, _ = cg.unproject(small, pix)
-    warm2 = pix + torch.as_tensor(rng.normal(0, 2.0, (n2, 2)),
-                                  dtype=torch.float32, device=dev)
-    g02 = cg.pixel_to_grid(small, warm2).contiguous()
-    check_project(small, dirs2.contiguous(), g02, 8, f"{gh2}x{gw2}")
-    check_blocks(small, dirs2.contiguous(), g02, 8, f"{gh2}x{gw2}")
+    dirs2, g02 = problems.pinhole_projection_inputs(small, n2, rng)
+    check_project(small, dirs2, g02, 8, f"{gh2}x{gw2}")
+    check_blocks(small, dirs2, g02, 8, f"{gh2}x{gw2}")
     # 45x79 is the pipeline's default grid for a 1080p camera (25 px cells);
     # the random inputs of the full-size cases are timed again in [5].
+    hd = problems.pinhole_model(1920, 1080, 79, 45, device=dev)
+    dirs_hd, g0_hd = problems.pinhole_projection_inputs(
+        hd, N_PROJECTION, np.random.default_rng(45))
+    check_project(hd, dirs_hd, g0_hd, options.proj_iterations, "1080p 45x79")
+    check_blocks(hd, dirs_hd, g0_hd, options.proj_iterations, "1080p 45x79")
     random_windows = {}
     for k, (hh, ww), nn in ((2, (gh2, gw2), n2), (5, (gh2, gw2), n2),
                             (5, (gh, gw), n_obs), (2, (45, 79), n_obs)):
@@ -417,6 +434,8 @@ def main() -> int:
         require(e <= WINDOW_REL_TOL, f"{name}: sparse yardstick rel err {e}")
     grid_bytes = gh * gw * 3 * 4
     jw_bytes = jw.numel() * 4
+    proj_bytes, proj_flops = projection_work(n, grid_bytes, loop_flop, False)
+    blk_bytes, blk_flops = projection_work(n, grid_bytes, loop_flop, True)
     rows = {
         "project": dict(
             source="camera_calibration_torch/csrc/project.cu",
@@ -425,16 +444,13 @@ def main() -> int:
                                                  iters, eps),
             plain=lambda: cgc.project_grid_coords_plain(model.grid, d0, g00,
                                                         lo, hi, iters, eps),
-            nbytes=n * (3 + 2) * 4 + grid_bytes + n * (2 + 1) * 4,
-            flops=loop_flop + FLOP_FINAL_COST * n),
+            nbytes=proj_bytes, flops=proj_flops),
         "project_blocks": dict(
             source="camera_calibration_torch/csrc/project.cu",
             replaces="camera_calibration_tpu/models/central_generic_pallas.py:176",
             kern=lambda: cgc.project_blocks(*blk_args),
             plain=lambda: cgc.project_blocks_plain(*blk_args),
-            nbytes=n * (3 + 2) * 4 + 3 * grid_bytes
-            + n * (2 + 1 + 6 + 64 + 2) * 4,
-            flops=loop_flop + (FLOP_FINAL_COST + FLOP_BLOCKS_TAIL) * n),
+            nbytes=blk_bytes, flops=blk_flops),
         "window_apply_j": dict(
             source="camera_calibration_torch/csrc/window_apply_j.cu",
             replaces="camera_calibration_tpu/ba/window_pallas.py:133",
@@ -503,6 +519,31 @@ def main() -> int:
             log(f"[5] {name} random {hh}x{ww} K={k}: {ms:.4f} ms, graph "
                 f"{graph_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; {nx} "
                 f"observations) on {smi}")
+
+    # The two projections on the 1080p inputs of [3] (45x79 grid).
+    lo_hd, hi_hd = cg._static_clamp_bounds(hd)
+    t1_hd, t2_hd = (t.contiguous()
+                    for t in manifolds.direction_tangents(hd.grid))
+    sx_hd, sy_hd = cg.pixel_scale_to_grid_scale(hd)
+    _, iters_hd = cgc.lm_loop_plain(hd.grid, dirs_hd, g0_hd, lo_hd, hi_hd,
+                                    iters, eps)
+    loop_flop_hd = FLOP_LM_ITERATION * float(iters_hd.sum())
+    for name, fn, blocks in (
+            ("project",
+             lambda: cgc.project_grid_coords(hd.grid, dirs_hd, g0_hd, lo_hd,
+                                             hi_hd, iters, eps), False),
+            ("project_blocks",
+             lambda: cgc.project_blocks(hd.grid, t1_hd, t2_hd, dirs_hd, g0_hd,
+                                        lo_hd, hi_hd, (1 / sx_hd, 1 / sy_hd),
+                                        iters, eps), True)):
+        ms = time_ms(torch, fn, reps=100, warmup=5)
+        graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+        b_ms, b_by = bound_ms(*projection_work(
+            N_PROJECTION, 45 * 79 * 3 * 4, loop_flop_hd, blocks))
+        log(f"[5] {name} 1080p 45x79: {ms:.4f} ms, graph {graph_ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}; {N_PROJECTION} points, "
+            f"{float(iters_hd.float().mean()):.3f} LM iterations each) on "
+            f"{smi}")
 
     # LM iterations per second of both step forms, from a fresh perturbation
     # (the kernels are built and warm); no early stop inside the window.

@@ -12,7 +12,9 @@ Tolerances: the window kernels to 1e-4 of the largest value of a float64
 plain reference (the reference package's bar for its TPU kernels); the
 projection kernels to 1e-3 px on points valid in both versions, with at
 most 1% valid-mask flips (float32 rounding can flip an accept test where
-the cost is flat); one LM step to 1e-3 on cost and points.
+the cost is flat), and p_px and j_win to 1e-3 of their largest value on
+points valid in both with the same window base; one LM step to 1e-3 on
+cost and points.
 """
 
 import dataclasses
@@ -119,42 +121,134 @@ def test_window_kernels_match_plain(card, gh, gw, k, n, bases):
         assert torch.equal(got, again), f"{name} is not repeatable"
 
 
-@pytest.mark.parametrize("gh,gw", [(16, 16), (21, 28)])
-def test_projection_kernels_match_plain(card, gh, gw):
+def _projection_case(card, gh, gw, seed, n=4000):
     model = problems.pinhole_model(640, 480, gw, gh, device=card)
-    rng = np.random.default_rng(gh)
-    n = 4000
+    rng = np.random.default_rng(seed)
     pix = torch.as_tensor(rng.uniform([2, 2], [638, 478], (n, 2)),
                           dtype=torch.float32, device=card)
     dirs = cg.unproject(model, pix)[0].contiguous()
     warm = pix + torch.as_tensor(rng.normal(0, 2.0, (n, 2)),
                                  dtype=torch.float32, device=card)
-    warm[:4] = torch.tensor([[-50.0, -50.0], [700.0, 240.0], [320.0, -40.0],
-                             [320.0, 530.0]], device=card)
-    g0 = cg.pixel_to_grid(model, warm).contiguous()
+    return model, dirs, warm
+
+
+def _run_projections(model, dirs, g0, iters=8, blocks=True):
+    """Both kernels and both plain versions on the same inputs:
+    ((g, cost) kernel, (g, cost) plain, blocks kernel, blocks plain); the
+    blocks pair is None unless ``blocks``."""
     lo, hi = cg._static_clamp_bounds(model)
     eps = cg.default_eps(torch.float32)
     sx, sy = cg.pixel_scale_to_grid_scale(model)
     t1, t2 = (t.contiguous() for t in manifolds.direction_tangents(model.grid))
-
-    gk, ck = cgc.project_grid_coords(model.grid, dirs, g0, lo, hi, 8, eps)
-    gp, cp = cgc.project_grid_coords_plain(model.grid, dirs, g0, lo, hi, 8, eps)
-    args = (model.grid, t1, t2, dirs, g0, lo, hi, (1 / sx, 1 / sy), 8, eps)
-    bk = cgc.project_blocks(*args)
-    bp = cgc.project_blocks_plain(*args)
+    before = (_cuda.launches["project"], _cuda.launches["project_blocks"])
+    pk = cgc.project_grid_coords(model.grid, dirs, g0, lo, hi, iters, eps)
+    pp = cgc.project_grid_coords_plain(model.grid, dirs, g0, lo, hi, iters,
+                                       eps)
+    args = (model.grid, t1, t2, dirs, g0, lo, hi, (1 / sx, 1 / sy), iters, eps)
+    bk = cgc.project_blocks(*args) if blocks else None
+    bp = cgc.project_blocks_plain(*args) if blocks else None
     torch.cuda.synchronize()
-    for (g_k, c_k), (g_p, c_p) in (((gk, ck), (gp, cp)),
-                                   ((bk[0], bk[1]), (bp[0], bp[1]))):
+    assert (_cuda.launches["project"], _cuda.launches["project_blocks"]) == (
+        before[0] + 1, before[1] + int(blocks))
+    return pk, pp, bk, bp
+
+
+def _assert_projections_match(model, outs, n, min_valid=0.9):
+    pk, pp, bk, bp = outs
+    eps = cg.default_eps(torch.float32)
+    sx, sy = cg.pixel_scale_to_grid_scale(model)
+    pairs = [((pk[0], pk[1]), (pp[0], pp[1]))]
+    if bk is not None:
+        pairs.append(((bk[0], bk[1]), (bp[0], bp[1])))
+    for (g_k, c_k), (g_p, c_p) in pairs:
         vk, vp = c_k < 1e4 * eps, c_p < 1e4 * eps
-        assert int(vp.sum()) > 0.9 * n
+        assert int(vp.sum()) > min_valid * n
         assert int((vk != vp).sum()) <= 0.01 * n
         both = vk & vp
         dg = (g_k - g_p)[both].abs()
         assert float(dg[:, 0].max()) / sx <= PX_TOL
         assert float(dg[:, 1].max()) / sy <= PX_TOL
+    if bk is None:
+        return
     same = (bk[1] < 1e4 * eps) & (bp[1] < 1e4 * eps) & (bk[4] == bp[4]).all(1)
     assert _rel(bk[2][same], bp[2][same]) <= 1e-3
     assert _rel(bk[3][:, same], bp[3][:, same]) <= 1e-3
+
+
+@pytest.mark.parametrize("gh,gw", [
+    (16, 16), (21, 28),
+    # the pipeline's default grid for a 1080p camera: project_blocks in
+    # blocks of 1024 threads
+    (45, 79),
+    # the largest square grid of project_blocks
+    (80, 80),
+    # the largest square grid of project, in blocks of 1024 threads
+    (139, 139)])
+def test_projection_kernels_match_plain(card, gh, gw):
+    model, dirs, warm = _projection_case(card, gh, gw, seed=gh)
+    warm[:4] = torch.tensor([[-50.0, -50.0], [700.0, 240.0], [320.0, -40.0],
+                             [320.0, 530.0]], device=card)
+    g0 = cg.pixel_to_grid(model, warm).contiguous()
+    _assert_projections_match(
+        model, _run_projections(model, dirs, g0, blocks=gh <= 80),
+        dirs.shape[0])
+
+
+@pytest.mark.parametrize("gh,gw", [(16, 16), (139, 139)])
+def test_projection_windows_outside_the_grid(card, gh, gw):
+    """Points whose warm start puts the whole window off the grid, on every
+    side and far out, beside ordinary points in the same warps: the surface
+    there is 0, so both versions leave the point where it is with a NaN
+    cost (invalid), and the window base is floor(g) - 1 as in the plain
+    version.  The ordinary points still match (both block sizes)."""
+    model, dirs, warm = _projection_case(card, gh, gw, seed=5)
+    g0 = cg.pixel_to_grid(model, warm).contiguous()
+    out = torch.zeros(g0.shape[0], dtype=torch.bool, device=card)
+    out[::3] = True
+    far = torch.tensor([[-4.5, 3.0], [gw + 3.5, 3.0], [3.0, -4.5],
+                        [3.0, gh + 3.5], [-7.0, -9.0], [-2e7, 5.0],
+                        [5.0, 3e8], [gw + 40.0, gh + 40.0]], device=card)
+    g0[out] = far[torch.arange(int(out.sum()), device=card) % far.shape[0]]
+    blocks = gh <= 80
+    pk, pp, bk, bp = _run_projections(model, dirs, g0, blocks=blocks)
+    results = [pk, pp] + ([bk, bp] if blocks else [])
+    for g, c, *_ in results:
+        assert torch.equal(g[out], g0[out])
+        assert bool(torch.isnan(c[out]).all())
+    keep = ~out
+
+    def kept(res):
+        if res is None:
+            return None
+        return tuple(t[keep] if t.shape[0] == g0.shape[0] else t[:, keep]
+                     for t in res)
+
+    if blocks:
+        assert torch.equal(bk[4][out], bp[4][out])
+    _assert_projections_match(model, tuple(kept(r) for r in (pk, pp, bk, bp)),
+                              int(keep.sum()))
+
+
+def test_projection_points_converging_at_different_iterations(card):
+    """Lanes of one warp that leave the LM loop at different iterations:
+    warm starts 0, 0.3, 3 and 30 px off in turn, so every warp mixes points
+    that need one iteration with points that need several."""
+    model = problems.pinhole_model(640, 480, 28, 21, device=card)
+    rng = np.random.default_rng(9)
+    n = 4096
+    pix = torch.as_tensor(rng.uniform([2, 2], [638, 478], (n, 2)),
+                          dtype=torch.float32, device=card)
+    dirs = cg.unproject(model, pix)[0].contiguous()
+    scale = torch.tensor([0.0, 0.3, 3.0, 30.0], device=card).repeat(n // 4)
+    noise = torch.as_tensor(rng.normal(0, 1, (n, 2)), dtype=torch.float32,
+                            device=card)
+    g0 = cg.pixel_to_grid(model, pix + scale[:, None] * noise).contiguous()
+    lo, hi = cg._static_clamp_bounds(model)
+    _, iters = cgc.lm_loop_plain(model.grid, dirs, g0, lo, hi, 8,
+                                 cg.default_eps(torch.float32))
+    per_warp = iters.reshape(-1, 32)
+    assert bool((per_warp.max(1).values > per_warp.min(1).values).all())
+    _assert_projections_match(model, _run_projections(model, dirs, g0), n)
 
 
 def test_window_apply_jtw_compact_layout(card):
@@ -183,6 +277,25 @@ def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot):
                 gh, gw, k, per_knot(k)), (k, gh, gw)
 
 
+def test_project_smem_bytes_match_the_kernels(card):
+    """The Python reckoning of shared memory and block size equals the
+    library's own for both kernels, and an SM holds at least 32 warps."""
+    lib = _cuda.lib()
+    grids = ((16, 16), (21, 28), (45, 79), (68, 68), (69, 70), (80, 80),
+             (139, 139))
+    for blocks in (False, True):
+        for gh, gw in grids:
+            nbytes = cgc.project_smem_bytes(gh, gw, blocks)
+            assert lib.cct_project_smem_bytes(int(blocks), gh, gw) == nbytes
+            threads = cgc.threads(gh, gw, blocks)
+            assert lib.cct_project_threads(int(blocks), gh, gw) == threads
+            if nbytes > _cuda.MAX_SMEM_BYTES:
+                continue
+            per_sm, nblocks = cgc.launch_shape(blocks, 262_144, gh, gw, card)
+            assert per_sm * threads >= 1024, (blocks, gh, gw)
+            assert 1 <= nblocks <= per_sm * _cuda.num_sms(card)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     j_win, base, tangent, ws, w = _window_inputs(card, 16, 16, 2, 64, seed=0)
     with pytest.raises(TypeError):
@@ -193,12 +306,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         wc.window_block_diag(j_win, base.long(), w, 16, 16, 2)
     with pytest.raises(ValueError):
         wc.window_apply_j(j_win[:32], base, tangent)
-    # 150·150·3 floats need more than a block's 227 KB of shared memory
-    big = problems.pinhole_model(640, 480, 150, 150, device=card)
+    # One grid row and column more than the largest square grid each
+    # projection kernel takes in a block's 227 KB of shared memory: 140x140
+    # packed knots for project, 81x81 knots and frames for project_blocks.
     dirs = torch.tensor([[0.0, 0.0, 1.0]], device=card)
-    g0 = torch.tensor([[75.0, 75.0]], device=card)
+    before = dict(_cuda.launches)
+    big = problems.pinhole_model(640, 480, 140, 140, device=card)
     with pytest.raises(ValueError, match="shared memory"):
-        cgc.project_grid_coords(big.grid, dirs, g0, (1, 1), (148, 148), 4, 1e-10)
+        cgc.project_grid_coords(big.grid, dirs,
+                                torch.tensor([[70.0, 70.0]], device=card),
+                                (1, 1), (138, 138), 4, 1e-10)
+    big = problems.pinhole_model(640, 480, 81, 81, device=card)
+    t1, t2 = (t.contiguous() for t in manifolds.direction_tangents(big.grid))
+    with pytest.raises(ValueError, match="shared memory"):
+        cgc.project_blocks(big.grid, t1, t2, dirs,
+                           torch.tensor([[40.0, 40.0]], device=card), (1, 1),
+                           (79, 79), (1.0, 1.0), 4, 1e-10)
+    assert dict(_cuda.launches) == before
     # one grid row and column more than the K=5 block diagonal takes
     g = K5_MAX_GRID + 1
     j5, b5, _, _, w5 = _window_inputs(card, g, g, 5, 64, seed=0)
