@@ -56,14 +56,14 @@ SIGNATURES = {
                            _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     # jwin, base, base_sn, base_sc, tangent, n, gh, gw, k, out, stream
     "cct_window_apply_j": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
-    # jwin, base, base_sn, base_sc, ws, n, gh, gw, k, partial, nblocks,
-    # out, stream
-    "cct_window_apply_jtw": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _I,
-                             _P, _P],
-    # jwin, base, base_sn, base_sc, w, n, gh, gw, k, partial, nblocks,
-    # out, stream
-    "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _I,
-                              _P, _P],
+    # jwin, base, base_sn, base_sc, ws, n, gh, gw, k, band_rows, partial,
+    # nblocks, out, stream
+    "cct_window_apply_jtw": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                             _I, _P, _P],
+    # jwin, base, base_sn, base_sc, w, n, gh, gw, k, band_rows, partial,
+    # nblocks, out, stream
+    "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                              _I, _P, _P],
     # blocks (0: cct_project, 1: cct_project_blocks), gh, gw: the kernel's
     # blocks that fit on one SM, its threads per block, one block's shared
     # memory
@@ -76,6 +76,9 @@ SIGNATURES = {
     # k, gh, gw: shared memory of one block of the partial pass
     "cct_window_apply_jtw_smem_bytes": [_I, _I, _I],
     "cct_window_block_diag_smem_bytes": [_I, _I, _I],
+    # k, gh, gw: grid rows per band of the partial pass
+    "cct_window_apply_jtw_band_rows": [_I, _I, _I],
+    "cct_window_block_diag_band_rows": [_I, _I, _I],
 }
 
 # Entry points that return another type than an int status or count.

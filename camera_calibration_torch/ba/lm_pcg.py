@@ -1,32 +1,40 @@
-"""Joint bundle adjustment: Levenberg-Marquardt with Schur-complement PCG.
+"""Joint bundle adjustment: Levenberg-Marquardt with block elimination.
 
 - Per-observation residual + Jacobian blocks are computed once per LM
-  iteration (closed form, batched) and kept on the device.
-- The normal equations (JᵀWJ + λI) δ = −g are solved matrix-free: one
-  variable group (points or imageset poses) is eliminated by its block
-  diagonal, and block-Jacobi preconditioned CG runs on the reduced system.
+  iteration (closed form, batched) and kept on the device; with
+  ``block_chunk`` they are computed in chunks of observations.
+- The normal equations (JᵀWJ + λI) δ = −g are solved by one of the solver
+  modes: matrix-free block-Jacobi PCG on the full system (``pcg``) or on
+  the system reduced by eliminating the points (``schur``) or the imageset
+  poses (``schur_poses``); or a dense Cholesky solve of the explicitly
+  assembled reduced system (``schur_direct``: poses eliminated,
+  ``schur_direct_points``: points).  ``auto`` picks ``schur_direct`` while
+  the reduced system is small, ``schur`` beyond.  A Schur mode whose
+  eliminated group is frozen falls back to ``pcg``.
 - The intrinsics legs of every matvec and the block-Jacobi blocks of the
   intrinsics go through the window kernels (``ba/window_cuda.py``); the
-  projections go through the projection kernels
+  CentralGeneric projections go through the projection kernels
   (``models/central_generic_cuda.py``).
 - An LM step is judged on the observations valid in both states (paired
   cost comparison); λ is halved on accept and doubled on reject.
 - Projections warm-start from the previous converged pixels.
 
-This slice ports ``solver="schur"`` and ``"schur_poses"`` for CentralGeneric
-cameras, in both step forms: the two-pass step (blocks pass + cost-only
+Both step forms are ported: the two-pass step (blocks pass + cost-only
 pass, :func:`lm_step` without ``blocks``) and the cached-blocks step (the
 test-state blocks pass doubles as the accept test and the next iteration's
-cache, :func:`make_lm_scan`).  Everything else raises
+cache, :func:`make_lm_scan`).  ``cg_jacobian_dtype="bfloat16"`` raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from camera_calibration_torch.ba import residuals as res
@@ -35,9 +43,11 @@ from camera_calibration_torch.ba.dataset import (
     ObservationTable, split_by_camera, to_grid_layout,
 )
 from camera_calibration_torch.ba.state import (
-    BAState, BATangent, apply_freeze, fix_gauge_mask, retract, zero_tangent,
+    BAState, BATangent, apply_freeze, fix_gauge_mask, retract,
+    transform_to_camera, zero_tangent,
 )
 from camera_calibration_torch.models import protocol
+from camera_calibration_torch.models.central_generic import CentralGenericModel
 from camera_calibration_torch.ops import linalg, manifolds
 from camera_calibration_torch.ops.segsum import onehot_segment_sum
 
@@ -48,7 +58,11 @@ class BAOptions:
     max_pcg_iterations: int = 50
     # "schur": eliminate the 3×3 point blocks, PCG on the reduced
     # rig+camera+intrinsics system; "schur_poses": eliminate the 6×6
-    # imageset pose blocks, PCG on cameras+points+intrinsics.
+    # imageset pose blocks, PCG on cameras+points+intrinsics;
+    # "schur_direct" / "schur_direct_points": the same eliminations (poses /
+    # points) and a dense Cholesky solve of the assembled reduced system
+    # (memory ∝ reduced dim²); "pcg": PCG on the full system; "auto":
+    # resolved by optimize() from the problem size (resolve_solver).
     solver: str = "schur"
     # Inexact-Newton forcing: stop CG when the residual drops below this
     # fraction of ||b||.
@@ -65,13 +79,19 @@ class BAOptions:
     freeze: tuple = ()
     # 1 = the two-pass step; k > 1 = k cached-blocks steps per call.
     lm_steps_per_call: int = 1
+    # Run verify_cost() once before optimizing.
     debug_verify: bool = False
     # "auto" re-lays each per-camera table into dense (imagesets × points)
     # grid layout when M·P ≤ grid_layout_max_expand × valid observations;
     # "flat" keeps the given tables.
     table_layout: str = "auto"
     grid_layout_max_expand: float = 1.6
+    # Blocks and costs in chunks of this many observations (flat layout
+    # within a chunk) where it divides a table's row count; None = one
+    # evaluation per table.
     block_chunk: int | None = None
+    # optimize() runs its LM loop under torch.profiler and writes the trace
+    # (``lm_trace.json``) into this directory.
     profile_dir: str | None = None
     # Warm-start each PCG solve from the previous cached-blocks step.
     cg_warm_start: bool = False
@@ -81,27 +101,18 @@ class BAOptions:
     lambda_schedule: str = "halve_double"
 
 
+SOLVERS = ("auto", "schur", "schur_poses", "schur_direct",
+           "schur_direct_points", "pcg")
+
+
 def check_options(options: BAOptions) -> None:
-    """Raise for options this slice of the port does not implement."""
-    if options.solver not in ("schur", "schur_poses"):
-        raise NotImplementedError(
-            f"solver={options.solver!r} is not ported yet: only 'schur' and "
-            "'schur_poses' are (ROADMAP.md queue 1, item 8: the other "
-            "solver modes, 'auto' included)")
+    """Raise for options this port does not implement or does not know."""
+    if options.solver not in SOLVERS:
+        raise ValueError(f"unknown solver {options.solver!r}")
     if options.cg_jacobian_dtype != "float32":
         raise NotImplementedError(
             "cg_jacobian_dtype='bfloat16' is not ported yet (ROADMAP.md "
             "queue 1, item 9)")
-    if options.block_chunk is not None:
-        raise NotImplementedError(
-            "block_chunk is not ported yet (ROADMAP.md queue 1, item 10)")
-    if options.debug_verify:
-        raise NotImplementedError(
-            "debug_verify (verify_cost) is not ported yet (ROADMAP.md "
-            "queue 1, item 8)")
-    if options.profile_dir is not None:
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP.md queue 1, item 8)")
     if options.lambda_schedule not in ("halve_double", "gain_ratio"):
         raise ValueError(f"unknown lambda_schedule {options.lambda_schedule!r}")
 
@@ -120,6 +131,9 @@ class OptimizationReport:
     first_call_seconds: float = 0.0
     step_seconds: float = 0.0
     total_seconds: float = 0.0
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
 
 
 # --------------------- pose/point legs (grid or flat) ---------------------
@@ -251,24 +265,73 @@ def _flat_cg(matvec_flat, precond_flat, b_flat, options, x0=None):
     return x, k
 
 
+def _chunks(seg, options):
+    """Row slices of ``options.block_chunk`` observations when the chunk
+    divides the table's rows (lm_pcg.py:375 of the reference package), else
+    None."""
+    chunk = options.block_chunk
+    n_obs = seg.count
+    if chunk and n_obs > chunk and n_obs % chunk == 0:
+        return [slice(i, i + chunk) for i in range(0, n_obs, chunk)]
+    return None
+
+
+def _slice_table(seg, rows):
+    """Rows of a table as a flat table (chunks break the (M, P) layout)."""
+    return ObservationTable(
+        imageset=seg.imageset[rows], camera=seg.camera[rows],
+        point=seg.point[rows], pixel=seg.pixel[rows], valid=seg.valid[rows])
+
+
+def _cat_blocks(parts):
+    """Blocks of consecutive chunks as one: rows on the observation axis,
+    ``j_win`` columns (rows ``[i, y, x, j]`` kept)."""
+    def cat(name):
+        return torch.cat([getattr(b, name) for b in parts])
+
+    intr = res.GridIntr(
+        j_win=torch.cat([b.intr.j_win for b in parts], dim=1),
+        base_xy=torch.cat([b.intr.base_xy for b in parts]),
+        k_tangent=parts[0].intr.k_tangent)
+    return res.ObsBlocks(r=cat("r"), j_rig=cat("j_rig"), j_cam=cat("j_cam"),
+                         j_point=cat("j_point"), intr=intr,
+                         weight=cat("weight"), valid=cat("valid"),
+                         cost=cat("cost"))
+
+
 def compute_blocks(data, state: BAState, warm_xy, options: BAOptions):
     """Residual/Jacobian blocks for all cameras.
 
     data: tuple of per-camera ObservationTable; warm_xy: tuple of (n_c, 2).
-    Returns (blocks list, new warm tuple).
+    With ``options.block_chunk`` each table is evaluated in chunks
+    (reference package ``lm_pcg.py:336-418``).  Returns (blocks list, new
+    warm tuple).
     """
     blocks, new_warm = [], []
     for ci, seg in enumerate(data):
         model = state.intrinsics[ci]
         protocol.require_supported(model)
-        b, w = res.segment_blocks(
-            model, state, seg.imageset, seg.camera, seg.point, seg.pixel,
-            seg.valid, warm_xy[ci],
-            huber_px=options.huber_px,
-            max_proj_iterations=options.proj_iterations,
-            tangent_frames=manifolds.direction_tangents(model.grid),
-            grid_shape=_valid_grid_shape(seg, state),
-        )
+        frames = (manifolds.direction_tangents(model.grid)
+                  if isinstance(model, CentralGenericModel) else None)
+
+        def eval_blocks(tbl, warm, gs):
+            return res.segment_blocks(
+                model, state, tbl.imageset, tbl.camera, tbl.point, tbl.pixel,
+                tbl.valid, warm,
+                huber_px=options.huber_px,
+                max_proj_iterations=options.proj_iterations,
+                tangent_frames=frames,
+                grid_shape=gs,
+            )
+
+        chunks = _chunks(seg, options)
+        if chunks is None:
+            b, w = eval_blocks(seg, warm_xy[ci], _valid_grid_shape(seg, state))
+        else:
+            parts = [eval_blocks(_slice_table(seg, rows), warm_xy[ci][rows],
+                                 None) for rows in chunks]
+            b = _cat_blocks([p[0] for p in parts])
+            w = torch.cat([p[1] for p in parts])
         blocks.append(b)
         new_warm.append(w)
     return blocks, tuple(new_warm)
@@ -347,7 +410,8 @@ def jtwj_block_diag(data, blocks, state: BAState):
         rig = rig + _jtwj_diag_imageset(seg, b.j_rig, w, m)
         cam = _add_row(cam, ci, torch.einsum("nij,nik,n->jk", b.j_cam, b.j_cam, w))
         pts = pts + _jtwj_diag_point(seg, b.j_point, w, p_n)
-        gh, gw = state.intrinsics[ci].grid.shape[:2]
+        model = state.intrinsics[ci]
+        gh, gw = model.grid_height, model.grid_width
         bi = b.intr
         intr.append(window_cuda.window_block_diag(
             bi.j_win, bi.base_xy, w, gh, gw, bi.k_tangent))
@@ -450,17 +514,217 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     return _masked(x, mask), iters
 
 
+def _flat_offsets(state):
+    """Offsets of each tangent group in the flat vector (the order of
+    :meth:`BATangent.ravel`, reference package ``lm_pcg.py:761-783``).
+
+    Returns ({key: (offset, size, shape)}, total) with key 'rig', 'cam',
+    'points' or ('intr', camera index).
+    """
+    zt = zero_tangent(state)
+    keys = ["rig", "cam", "points"] + [("intr", i) for i in range(len(zt.intr))]
+    offsets, off = {}, 0
+    for key, leaf in zip(keys, zt.leaves()):
+        offsets[key] = (off, leaf.numel(), tuple(leaf.shape))
+        off += leaf.numel()
+    return offsets, off
+
+
+def _dense_intr_j(bi, gh, gw, k):
+    """The per-observation dense intrinsics Jacobian (n, 2, gh·gw·k) of the
+    4×4-window form (reference package ``lm_pcg.py:786-807``), by one index
+    scatter; knots outside the grid add nothing."""
+    n = bi.base_xy.shape[0]
+    flat, inside = window_cuda._window_index(bi.base_xy, gh, gw)  # (n, 4, 4)
+    cols = flat[..., None] * k + torch.arange(k, device=flat.device)
+    vals = bi.j_win.reshape(2, 4, 4, k, n).permute(4, 0, 1, 2, 3)
+    vals = torch.where(inside[:, None, :, :, None], vals, 0.0)
+    out = vals.new_zeros((n, 2, gh * gw * k))
+    # a clamped outside knot can share a column with an inside one; it adds
+    # an exact 0 there
+    out.scatter_add_(2, cols[:, None].expand(n, 2, 4, 4, k).reshape(n, 2, -1),
+                     vals.reshape(n, 2, -1))
+    return out
+
+
+def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
+                       options, eliminate: str = "poses"):
+    """Solve (JᵀWJ + λI) δ = −grad by block elimination and a dense
+    Cholesky solve of the explicitly assembled reduced system (reference
+    package ``lm_pcg.py:810-966``): per-block D⁻¹, the cross blocks B, the
+    Schur complement H_keep − B D⁻¹ Bᵀ, Cholesky, back-substitution.
+
+    eliminate="poses" reduces onto [cam, points, intrinsics];
+    eliminate="points" onto [poses, cam, intrinsics].  Needs grid-layout
+    tables; memory grows with the square of the reduced dimension.  A
+    reduced system that is not positive definite gives a NaN step (which
+    the LM step rejects), as the reference's Cholesky does.  Returns
+    (δ, 0).
+    """
+    rig_b, cam_b, pts_b, _ = block_diag
+    dtype, dev = state.points.dtype, state.points.device
+    offs, f_dim = _flat_offsets(state)
+    m_n = state.rig_q_global.shape[0]
+    p_n = state.points.shape[0]
+    rig_off = offs["rig"][0]
+    cam_off = offs["cam"][0]
+    pt_off = offs["points"][0]
+    poses = eliminate == "poses"
+    if poses:
+        elim_b, k_el, n_el, elim_off = rig_b, 6, m_n, rig_off
+    else:
+        elim_b, k_el, n_el, elim_off = pts_b, 3, p_n, pt_off
+    d_inv = _damped_inv(elim_b, lam)
+
+    h = torch.zeros((f_dim, f_dim), dtype=dtype, device=dev)
+    c_mat = torch.zeros((n_el, f_dim, k_el), dtype=dtype, device=dev)
+
+    def add_sym(r0, rn, c0, cn, blk):
+        """Add a cross block and its transpose."""
+        h[r0:r0 + rn, c0:c0 + cn] += blk
+        h[c0:c0 + cn, r0:r0 + rn] += blk.T
+
+    def add_block_diag(off, blk):
+        """Blocks (B, k, k) on the diagonal from ``off``."""
+        nb, kk = blk.shape[0], blk.shape[-1]
+        idx = off + kk * torch.arange(nb, device=dev)[:, None] \
+            + torch.arange(kk, device=dev)
+        h[idx[:, :, None], idx[:, None, :]] += blk
+
+    # Within-group diagonal blocks of the kept variables.
+    if poses:
+        add_block_diag(pt_off, pts_b)
+    else:
+        add_block_diag(rig_off, rig_b)
+    add_block_diag(cam_off, cam_b)
+
+    for ci, seg in enumerate(data):
+        gs = _valid_grid_shape(seg, state)
+        if gs is None:
+            raise ValueError(
+                "schur_direct requires grid-layout observation tables "
+                "(options.table_layout='auto' on calibration-shaped "
+                "problems); use the PCG solver modes otherwise")
+        mm, pp = gs
+        b = blocks[ci]
+        w = b.weight.reshape(mm, pp, 1, 1)
+        jr = b.j_rig.reshape(mm, pp, 2, 6)
+        jc = b.j_cam.reshape(mm, pp, 2, 6)
+        jp = b.j_point.reshape(mm, pp, 2, 3)
+        i_off, i_size, (gh, gw, kt) = offs[("intr", ci)]
+        jd = _dense_intr_j(b.intr, gh, gw, kt).reshape(mm, pp, 2, i_size)
+        jdw, jcw = jd * w, jc * w
+        co = cam_off + 6 * ci
+
+        # Kept-variable blocks (intrinsics dense; cross-group off-diagonals).
+        h[i_off:i_off + i_size, i_off:i_off + i_size] += \
+            jdw.reshape(-1, i_size).T @ jd.reshape(-1, i_size)
+        add_sym(co, 6, i_off, i_size,
+                jcw.reshape(-1, 6).T @ jd.reshape(-1, i_size))
+        if poses:
+            h_pi = torch.einsum("mpia,mpig->pag", jp, jdw)
+            add_sym(pt_off, 3 * p_n, i_off, i_size, h_pi.reshape(3 * pp, i_size))
+            h_cp = torch.einsum("mpia,mpib->pab", jcw, jp)
+            add_sym(co, 6, pt_off, 3 * p_n,
+                    h_cp.permute(1, 0, 2).reshape(6, 3 * pp))
+            # Elimination cross blocks B = H_keep,pose(m).
+            jrw = jr * w
+            c_mat[:, pt_off:pt_off + 3 * p_n, :] += torch.einsum(
+                "mpia,mpib->mpab", jp, jrw).reshape(mm, 3 * pp, 6)
+            c_mat[:, co:co + 6, :] += torch.einsum("mpia,mpib->mab", jc, jrw)
+            c_mat[:, i_off:i_off + i_size, :] += torch.einsum(
+                "mpig,mpib->mgb", jd, jrw)
+        else:
+            jrw = jr * w
+            h_ri = torch.einsum("mpia,mpig->mag", jrw, jd)
+            add_sym(rig_off, 6 * m_n, i_off, i_size, h_ri.reshape(6 * mm, i_size))
+            h_rc = torch.einsum("mpia,mpib->mab", jrw, jc)
+            add_sym(rig_off, 6 * m_n, co, 6, h_rc.reshape(6 * mm, 6))
+            # Elimination cross blocks B = H_keep,point(p).
+            jpw = jp * w
+            c_mat[:, rig_off:rig_off + 6 * m_n, :] += torch.einsum(
+                "mpia,mpib->pmab", jr, jpw).reshape(pp, 6 * mm, 3)
+            c_mat[:, co:co + 6, :] += torch.einsum("mpia,mpib->pab", jc, jpw)
+            c_mat[:, i_off:i_off + i_size, :] += torch.einsum(
+                "mpig,mpib->pgb", jd, jpw)
+
+    # Schur complement S = H_keep − B D⁻¹ Bᵀ.
+    cd = torch.einsum("eFa,eab->eFb", c_mat, d_inv)
+    h -= cd.permute(1, 0, 2).reshape(f_dim, -1) \
+        @ c_mat.permute(1, 0, 2).reshape(f_dim, -1).T
+
+    mask_flat = mask.ravel()
+    keep = mask_flat.clone()
+    keep[elim_off:elim_off + k_el * n_el] = 0.0
+    g_e = grad.rig if poses else grad.points
+
+    # Reduced RHS: −g_keep + B D⁻¹ g_elim.
+    y_e = torch.einsum("eab,eb->ea", d_inv, g_e)
+    b_vec = (-grad.ravel() + torch.einsum("eFa,ea->F", c_mat, y_e)) * keep
+
+    # λ damping; dead rows (eliminated group, gauge/freeze mask) pinned to
+    # the identity so the factorization stays positive definite.
+    h = h * keep[:, None] * keep[None, :]
+    h.diagonal().add_(lam * keep + (1.0 - keep))
+    chol, info = torch.linalg.cholesky_ex(h)
+    x_flat = torch.cholesky_solve(b_vec[:, None], chol)[:, 0]
+    # a failed factorization gives NaN, with no host sync
+    x_flat = torch.where(info == 0, x_flat, float("nan")) * keep
+
+    # Back-substitution: δ_e = D⁻¹ (−g_e − Bᵀ δ_keep).
+    bt_x = torch.einsum("eFa,F->ea", c_mat, x_flat)
+    delta_e = torch.einsum("eab,eb->ea", d_inv, -g_e - bt_x)
+    x = mask.unravel(x_flat)
+    x = dataclasses.replace(x, **{"rig" if poses else "points": delta_e})
+    return _masked(x, mask), 0
+
+
+def pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
+              x0=None):
+    """Solve (JᵀWJ + λI) δ = −grad by block-Jacobi PCG on the full system
+    (reference package ``lm_pcg.py:969-992``).  Returns (δ, CG iterations).
+    """
+    mask_flat = mask.ravel()
+    precond = make_block_preconditioner(block_diag, lam, state)
+
+    def matvec_flat(vf):
+        v = mask.unravel(vf * mask_flat)
+        hv = apply_jtw(data, blocks, apply_j(data, blocks, v), state).ravel()
+        return (hv + lam * vf) * mask_flat
+
+    def precond_flat(rf):
+        return precond(mask.unravel(rf * mask_flat)).ravel() * mask_flat
+
+    b_flat = -grad.ravel() * mask_flat
+    x0_flat = x0.ravel() * mask_flat if x0 is not None else None
+    x_flat, iters = _flat_cg(matvec_flat, precond_flat, b_flat, options,
+                             x0=x0_flat)
+    return mask.unravel(x_flat * mask_flat), iters
+
+
 def total_cost(data, state, warm_xy, options):
-    """Robust per-obs costs, validity and warm pixels for every camera."""
+    """Robust per-obs costs, validity and warm pixels for every camera (in
+    chunks with ``options.block_chunk``, reference package
+    ``lm_pcg.py:995-1035``)."""
     costs, valids, warms = [], [], []
     for ci, seg in enumerate(data):
-        cost, valid, w = res.segment_cost(
-            state.intrinsics[ci], state, seg.imageset, seg.camera, seg.point,
-            seg.pixel, seg.valid, warm_xy[ci],
-            huber_px=options.huber_px,
-            max_proj_iterations=options.proj_iterations,
-            grid_shape=_valid_grid_shape(seg, state),
-        )
+        def eval_cost(tbl, warm, gs):
+            return res.segment_cost(
+                state.intrinsics[ci], state, tbl.imageset, tbl.camera,
+                tbl.point, tbl.pixel, tbl.valid, warm,
+                huber_px=options.huber_px,
+                max_proj_iterations=options.proj_iterations,
+                grid_shape=gs,
+            )
+
+        chunks = _chunks(seg, options)
+        if chunks is None:
+            cost, valid, w = eval_cost(seg, warm_xy[ci],
+                                       _valid_grid_shape(seg, state))
+        else:
+            parts = [eval_cost(_slice_table(seg, rows), warm_xy[ci][rows], None)
+                     for rows in chunks]
+            cost, valid, w = (torch.cat(x) for x in zip(*parts))
         costs.append(cost)
         valids.append(valid)
         warms.append(w)
@@ -487,16 +751,21 @@ def _solve_step(data, blocks, state, lam, options, x0=None):
     lam = torch.where(lam < 0, options.lambda_initial_factor * diag_sum / n_params,
                       lam)
 
-    eliminate = "points" if options.solver == "schur" else "poses"
-    if eliminate in options.freeze:
-        raise NotImplementedError(
-            f"freezing the eliminated group ({eliminate!r}) needs the "
-            "full-system 'pcg' solver, which is not ported yet (ROADMAP.md "
-            "queue 1, item 8)")
-    delta, pcg_iters = schur_pcg_solve(
-        data, blocks, state, grad, block_diag, lam, mask, options,
-        eliminate=eliminate, x0=x0,
-    )
+    # Block elimination needs the eliminated group free; with it frozen the
+    # full-system solve runs (reference package lm_pcg.py:1079-1104).
+    args = (data, blocks, state, grad, block_diag, lam, mask, options)
+    frozen = set(options.freeze)
+    if options.solver == "schur" and "points" not in frozen:
+        delta, pcg_iters = schur_pcg_solve(*args, eliminate="points", x0=x0)
+    elif options.solver == "schur_poses" and "poses" not in frozen:
+        delta, pcg_iters = schur_pcg_solve(*args, eliminate="poses", x0=x0)
+    elif options.solver == "schur_direct" and "poses" not in frozen:
+        delta, pcg_iters = schur_direct_solve(*args, eliminate="poses")
+    elif (options.solver == "schur_direct_points"
+          and "points" not in frozen):
+        delta, pcg_iters = schur_direct_solve(*args, eliminate="points")
+    else:
+        delta, pcg_iters = pcg_solve(*args, x0=x0)
     return delta, pcg_iters, lam, grad
 
 
@@ -527,8 +796,13 @@ def lm_step(state, warm_xy, lam, data, options: BAOptions, blocks=None,
     starts) are appended to the outputs.
 
     ``accept`` is read on the host (one sync per step); ``lam`` and the
-    costs stay 0-d tensors.
+    costs stay 0-d tensors.  ``solver="auto"`` must be resolved first
+    (:func:`resolve_solver`; :func:`optimize` does it).
     """
+    if options.solver == "auto":
+        raise ValueError(
+            "solver='auto' must be resolved before the step: call "
+            "optimize(), or resolve_solver(options, state) first")
     if blocks is None:
         return _lm_step_two_pass(state, warm_xy, lam, data, options)
     x0 = prev_delta if options.cg_warm_start else None
@@ -621,17 +895,57 @@ def maybe_grid_layout(data, state: BAState, options: BAOptions):
         return tuple(data)
     m = state.rig_q_global.shape[0]
     p = state.points.shape[0]
+    # The direct Schur solvers assemble the reduced system from the grid
+    # table, so they take the grid layout whatever the fill ratio.
+    force = options.solver in ("schur_direct", "schur_direct_points")
     out = []
     for seg in data:
         if seg.grid_shape is not None:
             out.append(seg)
             continue
         n_valid = int(seg.valid.sum())
-        if m * p <= options.grid_layout_max_expand * max(n_valid, 1):
+        if force or m * p <= options.grid_layout_max_expand * max(n_valid, 1):
             out.append(to_grid_layout(seg, m, p))
         else:
             out.append(seg)
     return tuple(out)
+
+
+def resolve_solver(options: BAOptions, state: BAState,
+                   direct_max_reduced_dim: int = 2048) -> BAOptions:
+    """Resolve ``solver="auto"`` from the problem size (reference package
+    ``lm_pcg.py:1341-1366``): ``schur_direct`` while the reduced system
+    (3 per point, 6 per camera, the intrinsics) has at most
+    ``direct_max_reduced_dim`` unknowns, ``schur`` beyond."""
+    if options.solver != "auto":
+        return options
+    n_intr = sum(protocol.intrinsics_tangent_zero(m).numel()
+                 for m in state.intrinsics)
+    reduced = state.points.shape[0] * 3 + state.cam_q_rig.shape[0] * 6 + n_intr
+    mode = "schur_direct" if reduced <= direct_max_reduced_dim else "schur"
+    return dataclasses.replace(options, solver=mode)
+
+
+def _profiled(profile_dir, device):
+    """A context that records the LM loop with torch.profiler (the card's
+    activity too when the state is on the card) and writes the trace to
+    ``profile_dir/lm_trace.json``; a no-op without ``profile_dir``."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+
+    @contextlib.contextmanager
+    def run():
+        with profile(activities=activities) as prof:
+            yield
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "lm_trace.json"))
+
+    return run()
 
 
 def optimize(
@@ -664,12 +978,24 @@ def optimize(
     data = tuple(seg if isinstance(seg, ObservationTable)
                  else convert.observation_table(seg, device=dev)
                  for seg in data)
+    was_auto = options.solver == "auto"
+    options = resolve_solver(options, state)
     data = maybe_grid_layout(data, state, options)
+    if (was_auto and options.solver.startswith("schur_direct")
+            and not all(seg.grid_shape is not None for seg in data)):
+        # auto picked the direct solver but the tables are not in grid
+        # layout (table_layout="flat"): the iterative mode instead
+        options = dataclasses.replace(options, solver="schur")
+    if options.debug_verify:
+        verify_cost(state, data, options)
     k = max(1, int(options.lm_steps_per_call))
-    if options.cg_warm_start and k == 1:
+    if options.cg_warm_start and (
+            k == 1 or options.solver.startswith("schur_direct")):
         warnings.warn(
             "cg_warm_start=True has no effect: it needs the cached-blocks "
-            "path (lm_steps_per_call > 1).", stacklevel=2)
+            "path (lm_steps_per_call > 1) and an iterative solver "
+            f"(got lm_steps_per_call={k}, solver={options.solver!r}).",
+            stacklevel=2)
     step = make_lm_scan(options, k) if k > 1 else make_lm_step(options)
     warm = tuple(seg.pixel for seg in data)
     lam = torch.tensor(-1.0, dtype=state.points.dtype, device=dev)
@@ -680,61 +1006,134 @@ def optimize(
     stop = False
     report = OptimizationReport()
     t_run0 = time.perf_counter()
-    while it < options.max_lm_iterations and not stop:
-        t0 = time.perf_counter()
-        if k > 1:
-            state, warm, lam, outs = step(state, warm, lam, data)
-            entries = list(zip(*outs))
-        else:
-            (state, warm, lam, accept, cost, new_cost, pcg_iters,
-             p_old, p_new) = step(state, warm, lam, data)
-            entries = [(accept, float(cost), float(new_cost), pcg_iters,
-                        float(p_old), float(p_new))]
-        dt = time.perf_counter() - t0  # the float conversions synced
-        if report.iterations == 0:
-            report.first_call_seconds = dt
-        else:
-            report.step_seconds += dt
-        for accept, cost, new_cost, pcg_iters, p_old, p_new in entries:
-            if it >= options.max_lm_iterations:
-                break
-            history.append({
-                "iteration": it,
-                "cost": cost,
-                "new_cost": new_cost,
-                "paired_cost": p_old,
-                "paired_new_cost": p_new,
-                "accepted": accept,
-                "lambda": float(lam),
-                "pcg_iterations": pcg_iters,
-            })
-            if callback is not None:
-                callback(history[-1], state)
-            it += 1
-            report.iterations = it
-            report.pcg_iterations_total += pcg_iters
-            if report.iterations == 1:
-                report.initial_cost = cost
-            if accept:
-                report.accepted += 1
-                rejects = 0
-                # Convergence is judged on the paired costs, the quantity
-                # the accept decision compares: the full cost can rise on
-                # an accepted step when the valid set shifts.
-                rel = (p_old - p_new) / max(p_old, 1e-30)
-                final_cost = new_cost
-                if rel < options.cost_reduction_threshold:
-                    stop = True
-                    break
+    with _profiled(options.profile_dir, dev):
+        while it < options.max_lm_iterations and not stop:
+            t0 = time.perf_counter()
+            if k > 1:
+                state, warm, lam, outs = step(state, warm, lam, data)
+                entries = list(zip(*outs))
             else:
-                report.rejected += 1
-                rejects += 1
-                final_cost = cost
-                if rejects >= options.max_consecutive_rejects:
-                    stop = True
+                (state, warm, lam, accept, cost, new_cost, pcg_iters,
+                 p_old, p_new) = step(state, warm, lam, data)
+                entries = [(accept, float(cost), float(new_cost), pcg_iters,
+                            float(p_old), float(p_new))]
+            dt = time.perf_counter() - t0  # the float conversions synced
+            if report.iterations == 0:
+                report.first_call_seconds = dt
+            else:
+                report.step_seconds += dt
+            for accept, cost, new_cost, pcg_iters, p_old, p_new in entries:
+                if it >= options.max_lm_iterations:
                     break
+                history.append({
+                    "iteration": it,
+                    "cost": cost,
+                    "new_cost": new_cost,
+                    "paired_cost": p_old,
+                    "paired_new_cost": p_new,
+                    "accepted": accept,
+                    "lambda": float(lam),
+                    "pcg_iterations": pcg_iters,
+                })
+                if callback is not None:
+                    callback(history[-1], state)
+                it += 1
+                report.iterations = it
+                report.pcg_iterations_total += pcg_iters
+                if report.iterations == 1:
+                    report.initial_cost = cost
+                if accept:
+                    report.accepted += 1
+                    rejects = 0
+                    # Convergence is judged on the paired costs, the quantity
+                    # the accept decision compares: the full cost can rise on
+                    # an accepted step when the valid set shifts.
+                    rel = (p_old - p_new) / max(p_old, 1e-30)
+                    final_cost = new_cost
+                    if rel < options.cost_reduction_threshold:
+                        stop = True
+                        break
+                else:
+                    report.rejected += 1
+                    rejects += 1
+                    final_cost = cost
+                    if rejects >= options.max_consecutive_rejects:
+                        stop = True
+                        break
     report.final_cost = (
         float(final_cost) if final_cost is not None else float("nan"))
     report.total_seconds = time.perf_counter() - t_run0
     return state, {"history": history, "final_cost": final_cost,
                    "report": report}
+
+
+def verify_cost(state, data, options: BAOptions, seed: int = 0):
+    """Numeric self-checks of the cost and gradient (reference package
+    ``lm_pcg.py:1561-1652``).
+
+    1. Determinism: the cost evaluated twice agrees bitwise (the cost path
+       has no atomic reduction).
+    2. Consistency: the cost of the Jacobian-block pass matches the
+       cost-only pass.
+    3. The analytic gradient against central differences along a random
+       tangent direction (numpy ``seed``), of 0.5·Σ w r² with the blocks'
+       weights frozen.
+
+    Returns the measured discrepancies; raises AssertionError on gross
+    failures.
+    """
+    warm = tuple(seg.pixel for seg in data)
+
+    def cost(s):
+        return sum(torch.sum(c) for c in total_cost(data, s, warm, options)[0])
+
+    c1 = float(cost(state))
+    c2 = float(cost(state))
+    assert c1 == c2, f"nondeterministic cost: {c1} vs {c2}"
+
+    blocks, _ = compute_blocks(data, state, warm, options)
+    c_blocks = float(sum(torch.sum(b.cost) for b in blocks))
+    rel_cost = abs(c_blocks - c1) / max(abs(c1), 1e-30)
+    assert rel_cost < 1e-4, (
+        f"block-pass cost {c_blocks} vs cost-pass {c1} (rel {rel_cost})")
+
+    # d/dt [0.5 Σ w·r(t)²] at t=0 is Σ w·r·(J v) = <grad, v> with the IRLS
+    # weights frozen
+    rng = np.random.default_rng(seed)
+    v = zero_tangent(state).map(lambda x: torch.as_tensor(
+        rng.normal(0, 1, tuple(x.shape)), dtype=x.dtype, device=x.device))
+    mask = fix_gauge_mask(state, options.freeze)
+    v = _masked(v, mask)
+    v = v.map(lambda x, n=torch.sqrt(v.dot(v)): x / n)
+    grad = _masked(apply_jtw(data, blocks, [b.r for b in blocks], state), mask)
+    analytic = float(grad.dot(v))
+
+    def weighted_cost(s):
+        total = 0
+        for ci, seg in enumerate(data):
+            x_cam, _ = transform_to_camera(s, seg.imageset, seg.camera,
+                                           s.points[seg.point])
+            px, _, _ = protocol.project_points(
+                s.intrinsics[ci], x_cam, init_xy=warm[ci],
+                max_iterations=options.proj_iterations)
+            r = px - seg.pixel
+            total = total + 0.5 * torch.sum(
+                blocks[ci].weight * torch.sum(r * r, dim=-1))
+        return total
+
+    eps = 1e-5 if state.points.dtype == torch.float64 else 3e-3
+    c_plus = float(weighted_cost(retract(state, v.map(lambda x: eps * x))))
+    c_minus = float(weighted_cost(retract(state, v.map(lambda x: -eps * x))))
+    fd = (c_plus - c_minus) / (2 * eps)
+    denom = max(abs(analytic), abs(fd), 1e-12)
+    rel_grad = abs(fd - analytic) / denom
+    assert rel_grad < 5e-2, (
+        f"gradient check failed: analytic {analytic} vs FD {fd} "
+        f"(rel {rel_grad})")
+    return {
+        "cost": c1,
+        "cost_block_pass_rel_diff": rel_cost,
+        "grad_analytic": analytic,
+        "grad_fd": fd,
+        "grad_rel_diff": rel_grad,
+    }

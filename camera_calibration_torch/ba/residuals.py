@@ -5,7 +5,9 @@ residual is ``r = π_c(R_c (R_r x_p + t_r) + t_c) − m`` with a Huber (1 px)
 robust loss.  Jacobian blocks are closed form: the pose and point chains go
 through small cross-product matrices; the intrinsics block of a grid model
 is the sparse 4×4-window knot Jacobian from the implicit-function-theorem
-projection sensitivities (``models/central_generic_cuda.py``).
+projection sensitivities (K = 2 per knot for CentralGeneric, from
+``models/central_generic_cuda.py``; K = 5 for NoncentralGeneric, from
+``models/noncentral_generic.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from camera_calibration_torch.ba.state import (
 )
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import central_generic_cuda as cgc
+from camera_calibration_torch.models import noncentral_generic as ncg
 from camera_calibration_torch.models import protocol
 from camera_calibration_torch.ops import losses, manifolds, se3
 
@@ -96,6 +99,24 @@ def _grid_projection_blocks(model, x_cam, warm_xy, max_proj_iterations,
     return px, pvalid, a, GridIntr(j_win=j_win, base_xy=base, k_tangent=2)
 
 
+def _noncentral_projection_blocks(model, x_cam, warm_xy, max_proj_iterations):
+    """NoncentralGeneric projection + (px, valid, d px / d x_cam, GridIntr
+    with K = 5); the window base comes from the window's first knot
+    (reference package ``residuals.py:270-285``)."""
+    px, g, pvalid = ncg.project_points(
+        model, x_cam, init_xy=warm_xy, max_iterations=max_proj_iterations)
+    nb = ncg.projection_blocks(model, g, x_cam)
+    first = nb["win_flat"][:, 0, 0]
+    gw = model.grid_width
+    n = first.shape[0]
+    base = torch.stack([torch.remainder(first, gw),
+                        torch.div(first, gw, rounding_mode="floor")], dim=-1)
+    j_win = nb["j_win"].permute(1, 2, 3, 4, 0).reshape(-1, n).contiguous()
+    intr = GridIntr(j_win=j_win,
+                    base_xy=base.to(torch.int32), k_tangent=5)
+    return px, pvalid, nb["pix_wrt_x"], intr
+
+
 def segment_blocks(
     model,
     state: BAState,
@@ -121,9 +142,13 @@ def segment_blocks(
     x_cam, x_rig = transform_to_camera(
         state, imageset_idx, camera_idx, x, grid_shape=grid_shape
     )
-    px, pvalid, a, intr = _grid_projection_blocks(
-        model, x_cam, warm_xy, max_proj_iterations, tangent_frames
-    )
+    if isinstance(model, ncg.NoncentralGenericModel):
+        px, pvalid, a, intr = _noncentral_projection_blocks(
+            model, x_cam, warm_xy, max_proj_iterations)
+    else:
+        px, pvalid, a, intr = _grid_projection_blocks(
+            model, x_cam, warm_xy, max_proj_iterations, tangent_frames
+        )
     valid = obs_valid & pvalid
 
     r_c = se3.quat_to_matrix(state.cam_q_rig[camera_idx])  # (n,3,3)

@@ -5,8 +5,9 @@ pattern points and per-camera intrinsics models.  A point in global
 (pattern) space maps to camera space as ``x_cam = R_c (R_r x + t_r) + t_c``.
 
 The tangent has 6 DoF per imageset pose, 6 per camera extrinsic, 3 per
-point and 2 per intrinsics-grid knot.  Flattened, it is laid out in field
-order: ``rig``, ``cam``, ``points``, then ``intr[c]`` for each camera.
+point and 2 (central) or 5 (noncentral) per intrinsics-grid knot.
+Flattened, it is laid out in field order: ``rig``, ``cam``, ``points``,
+then ``intr[c]`` for each camera.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ import dataclasses
 import torch
 
 from camera_calibration_torch.models import protocol
+from camera_calibration_torch.models.base import replace
+from camera_calibration_torch.models.noncentral_generic import (
+    NoncentralGenericModel,
+)
 from camera_calibration_torch.ops import se3
 
 
@@ -176,3 +181,21 @@ def transform_to_camera(state: BAState, imageset_idx, camera_idx, points,
     ct = state.cam_t_rig[camera_idx]
     x_rig = se3.quat_rotate(rq, points) + rt
     return se3.quat_rotate(cq, x_rig) + ct, x_rig
+
+
+def scale_state(state: BAState, factor) -> BAState:
+    """Scale the metric scale of the reconstruction (reference package
+    ``ba/state.py:189-211``): translations and points scale, and so does a
+    noncentral model's line-origin grid (camera-frame meters); direction
+    grids are scale-invariant."""
+    return BAState(
+        rig_q_global=state.rig_q_global,
+        rig_t_global=state.rig_t_global * factor,
+        cam_q_rig=state.cam_q_rig,
+        cam_t_rig=state.cam_t_rig * factor,
+        points=state.points * factor,
+        intrinsics=tuple(
+            replace(m, point_grid=m.point_grid * factor)
+            if isinstance(m, NoncentralGenericModel) else m
+            for m in state.intrinsics),
+    )

@@ -37,41 +37,80 @@ RING = (64, 2)
 COMPACT = (32, 1)
 
 
-def _layout_smem_bytes(gh, gw, k, per_knot, layout):
+def _layout_smem_bytes(rows, gw, k, per_knot, layout):
     tile, stages = layout
     stage = 32 * k * (tile + 4) + 4 * tile
-    return 4 * (stages * stage + (gh + gw) * (tile // 32) + gh * gw * per_knot)
+    return 4 * (stages * stage + (rows + gw) * (tile // 32)
+                + rows * gw * per_knot)
+
+
+def _fits(nbytes):
+    return nbytes <= _cuda.MAX_SMEM_BYTES
+
+
+@functools.cache
+def reduction_plan(gh: int, gw: int, k: int, per_knot: int) -> tuple:
+    """(layout, band rows) of the reduction kernels' blocks at this grid
+    (``cct::band_rows`` and ``cct::use_ring``).
+
+    A block keeps ``band rows`` grid rows of the (gh, gw, per_knot)
+    accumulator: all gh where the compact layout of the whole grid fits one
+    block, else ``ceil(gh / nb)`` for the fewest bands ``nb`` that fit.
+    The layout is :data:`RING` where it fits at those rows, else
+    :data:`COMPACT`.  Raises where one grid row does not fit."""
+    for nb in range(1, gh + 1):
+        rows = -(-gh // nb)
+        if _fits(_layout_smem_bytes(rows, gw, k, per_knot, COMPACT)):
+            ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING))
+            return (RING if ring else COMPACT), rows
+    raise ValueError(
+        f"window reduction: one grid row of {gw} knots x {per_knot} values "
+        f"needs {_layout_smem_bytes(1, gw, k, per_knot, COMPACT)} bytes of "
+        f"shared memory, above the {_cuda.MAX_SMEM_BYTES}-byte limit of one "
+        "Hopper block")
 
 
 def reduction_layout(gh: int, gw: int, k: int, per_knot: int) -> tuple:
     """The layout (:data:`RING` or :data:`COMPACT`) of the reduction
-    kernels' block at this grid (``cct::use_ring``)."""
-    fits = _layout_smem_bytes(gh, gw, k, per_knot, RING) <= _cuda.MAX_SMEM_BYTES
-    return RING if fits else COMPACT
+    kernels' blocks at this grid."""
+    return reduction_plan(gh, gw, k, per_knot)[0]
 
 
-def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int) -> int:
+def reduction_bands(gh: int, gw: int, k: int, per_knot: int) -> tuple:
+    """(band rows, bands): the second dimension of the partial pass's
+    launch grid (1 band where the whole grid fits one block)."""
+    rows = reduction_plan(gh, gw, k, per_knot)[1]
+    return rows, -(-gh // rows)
+
+
+def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int,
+                         band_rows: int | None = None) -> int:
     """Shared memory of one block of the reduction kernels
     (``cct::partial_smem_bytes`` in ``csrc/window_reduce.cuh``): the
     layout's stages, each 32K j_win rows of ``tile + 4`` floats plus two
     floats and two ints per observation; one 32-bit mask word per 32
-    observations of a tile for every grid row and column; and the
-    (gh, gw, per_knot) accumulator grid."""
-    return _layout_smem_bytes(gh, gw, k, per_knot,
-                              reduction_layout(gh, gw, k, per_knot))
+    observations of a tile for each of the band's grid rows and for every
+    grid column; and the band's (rows, gw, per_knot) accumulator grid.
+    ``band_rows`` other than the plan's gives the block of such bands."""
+    layout, rows = reduction_plan(gh, gw, k, per_knot)
+    if band_rows is not None:
+        rows = band_rows
+        ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING))
+        layout = RING if ring else COMPACT
+    return _layout_smem_bytes(rows, gw, k, per_knot, layout)
 
 
 def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
                      num_sms: int) -> int:
     """Blocks of the reduction's partial pass for N observations in tiles
-    of ``tile`` (:func:`_cuda.persistent_blocks`)."""
+    of ``tile`` (:func:`_cuda.persistent_blocks`), in each band."""
     return _cuda.persistent_blocks(n, tile, blocks_per_sm, num_sms)
 
 
 @functools.cache
 def _resident_blocks(name, k, gh, gw, device_index):
     """Partial-pass blocks of kernel ``name`` that one SM holds at once
-    (the kernel's occupancy at this grid and K)."""
+    (the kernel's occupancy at this grid's band and K)."""
     with torch.cuda.device(device_index):
         per_sm = getattr(_cuda.lib(), f"cct_{name}_blocks_per_sm")(k, gh, gw)
     if per_sm <= 0:
@@ -170,15 +209,23 @@ def window_apply_j(j_win, base_xy, tangent):
 
 
 def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, cells_per_knot,
-                      out_shape):
+                      out_shape, band_rows):
     n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, per_obs=per_obs)
-    _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot), name)
+    rows = reduction_plan(gh, gw, k, cells_per_knot)[1]
+    if band_rows is not None:
+        if not 1 <= band_rows <= gh:
+            raise ValueError(f"{name}: band_rows must be in 1..{gh}")
+        rows = band_rows
+    _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot, rows),
+                     name)
     out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
     if n == 0:
         return out.zero_()
     dev = j_win.device
     tile, _ = reduction_layout(gh, gw, k, cells_per_knot)
+    # the plan's occupancy sets the block count, so bands of other heights
+    # sum the same partial rows
     nblocks = reduction_blocks(n, tile,
                                _resident_blocks(name, k, gh, gw, dev.index),
                                _cuda.num_sms(dev))
@@ -186,25 +233,31 @@ def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, cells_per_knot,
                           dtype=torch.float32, device=j_win.device)
     _cuda.launch(name, j_win.data_ptr(), base_xy.data_ptr(),
                  base_xy.stride(0), base_xy.stride(1), per_obs.data_ptr(),
-                 n, gh, gw, k, partial.data_ptr(), nblocks, out.data_ptr())
+                 n, gh, gw, k, rows, partial.data_ptr(), nblocks,
+                 out.data_ptr())
     return out
 
 
-def window_apply_jtw(j_win, base_xy, ws, gh, gw, k):
-    """J_intrᵀ(W·s) scattered into (gh, gw, K); ws (N, 2)."""
+def window_apply_jtw(j_win, base_xy, ws, gh, gw, k, *, band_rows=None):
+    """J_intrᵀ(W·s) scattered into (gh, gw, K); ws (N, 2).
+
+    ``band_rows`` (kernel only): grid rows per band of the partial pass in
+    place of :func:`reduction_plan`'s; the result is the same, bit for
+    bit, as long as the layout is."""
     if j_win.device.type == "cpu":
         return window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k)
     if ws.shape != (j_win.shape[1], 2):
         raise ValueError("window_apply_jtw: ws must be (N, 2)")
     return _reduction_launch("window_apply_jtw", j_win, base_xy, ws, gh, gw,
-                             k, k, (gh, gw, k))
+                             k, k, (gh, gw, k), band_rows)
 
 
-def window_block_diag(j_win, base_xy, w, gh, gw, k):
-    """Per-knot K×K blocks of diag(JᵀWJ): (gh, gw, K, K); w (N,)."""
+def window_block_diag(j_win, base_xy, w, gh, gw, k, *, band_rows=None):
+    """Per-knot K×K blocks of diag(JᵀWJ): (gh, gw, K, K); w (N,).
+    ``band_rows`` as for :func:`window_apply_jtw`."""
     if j_win.device.type == "cpu":
         return window_block_diag_plain(j_win, base_xy, w, gh, gw, k)
     if w.shape != (j_win.shape[1],):
         raise ValueError("window_block_diag: w must be (N,)")
     return _reduction_launch("window_block_diag", j_win, base_xy, w, gh, gw,
-                             k, k * (k + 1) // 2, (gh, gw, k, k))
+                             k, k * (k + 1) // 2, (gh, gw, k, k), band_rows)

@@ -1,9 +1,10 @@
 """Carry states, models and observation tables into the port.
 
-The reference package's ``BAState``, ``CentralGenericModel`` and
-``ObservationTable`` are given as numpy arrays: either a dict keyed by the
-field names or any object with those attributes (array-likes are read with
-``numpy.asarray``).  The converters build the port's objects on a device,
+The reference package's ``BAState``, ``CentralGenericModel``,
+``NoncentralGenericModel`` and ``ObservationTable`` are given as numpy
+arrays: either a dict keyed by the field names or any object with those
+attributes (array-likes are read with ``numpy.asarray``).  A model with a
+``direction_grid`` is noncentral, one with a ``grid`` central.  The converters build the port's objects on a device,
 by default the card.  Floating arrays keep their dtype unless ``dtype`` is
 given; index columns become int64.
 """
@@ -17,6 +18,9 @@ from camera_calibration_torch.ba.dataset import ObservationTable, table_from_num
 from camera_calibration_torch.ba.state import BAState
 from camera_calibration_torch.config import default_device
 from camera_calibration_torch.models.central_generic import CentralGenericModel
+from camera_calibration_torch.models.noncentral_generic import (
+    NoncentralGenericModel,
+)
 
 _MODEL_INTS = ("width", "height", "calibration_min_x", "calibration_min_y",
                "calibration_max_x", "calibration_max_y")
@@ -45,11 +49,29 @@ def central_generic_model(model, device=None, dtype=None) -> CentralGenericModel
     )
 
 
+def noncentral_generic_model(model, device=None,
+                             dtype=None) -> NoncentralGenericModel:
+    device = default_device(device)
+    return NoncentralGenericModel(
+        direction_grid=_tensor(_get(model, "direction_grid"), device, dtype),
+        point_grid=_tensor(_get(model, "point_grid"), device, dtype),
+        **{k: int(_get(model, k, 0)) for k in _MODEL_INTS},
+    )
+
+
+def camera_model(model, device=None, dtype=None):
+    """The port's model of the fields it finds: ``direction_grid`` makes a
+    NoncentralGeneric model, ``grid`` a CentralGeneric one."""
+    if _get(model, "direction_grid") is not None:
+        return noncentral_generic_model(model, device, dtype)
+    return central_generic_model(model, device, dtype)
+
+
 def ba_state(state, device=None, dtype=None) -> BAState:
     device = default_device(device)
     return BAState(
         **{k: _tensor(_get(state, k), device, dtype) for k in _STATE_ARRAYS},
-        intrinsics=tuple(central_generic_model(m, device, dtype)
+        intrinsics=tuple(camera_model(m, device, dtype)
                          for m in _get(state, "intrinsics")),
     )
 
@@ -63,9 +85,18 @@ def observation_table(table, device=None, dtype=None) -> ObservationTable:
     )
 
 
+def _numpy(t):
+    return t.detach().cpu().numpy()
+
+
 def state_to_numpy(state: BAState) -> dict:
-    """The state's arrays as numpy (intrinsics as a tuple of grids)."""
-    out = {k: getattr(state, k).detach().cpu().numpy() for k in _STATE_ARRAYS}
-    out["intrinsics"] = tuple(m.grid.detach().cpu().numpy()
-                              for m in state.intrinsics)
+    """The state's arrays as numpy.  Intrinsics: a tuple with, per camera,
+    the grid of a central model or a dict of both grids
+    (``direction_grid``, ``point_grid``) of a noncentral one."""
+    out = {k: _numpy(getattr(state, k)) for k in _STATE_ARRAYS}
+    out["intrinsics"] = tuple(
+        {"direction_grid": _numpy(m.direction_grid),
+         "point_grid": _numpy(m.point_grid)}
+        if isinstance(m, NoncentralGenericModel) else _numpy(m.grid)
+        for m in state.intrinsics)
     return out

@@ -60,6 +60,7 @@ struct JtwOp {
 extern "C" int cct_window_apply_jtw(const void* jwin, const void* base,
                                     int base_sn, int base_sc, const void* ws,
                                     int n, int gh, int gw, int k,
+                                    int band_rows,
                                     void* partial, int nblocks, void* out,
                                     void* stream) {
   const float* j = static_cast<const float*>(jwin);
@@ -70,10 +71,10 @@ extern "C" int cct_window_apply_jtw(const void* jwin, const void* base,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k == 2)
     return static_cast<int>(cct::launch_window_reduce<2, JtwOp<2>>(
-        j, b, base_sn, base_sc, w, n, gh, gw, p, nblocks, o, s));
+        j, b, base_sn, base_sc, w, n, gh, gw, band_rows, p, nblocks, o, s));
   if (k == 5)
     return static_cast<int>(cct::launch_window_reduce<5, JtwOp<5>>(
-        j, b, base_sn, base_sc, w, n, gh, gw, p, nblocks, o, s));
+        j, b, base_sn, base_sc, w, n, gh, gw, band_rows, p, nblocks, o, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -88,5 +89,12 @@ extern "C" int cct_window_apply_jtw_blocks_per_sm(int k, int gh, int gw) {
 extern "C" long long cct_window_apply_jtw_smem_bytes(int k, int gh, int gw) {
   if (k == 2) return cct::partial_smem_bytes<2>(gh, gw, JtwOp<2>::kPerKnot);
   if (k == 5) return cct::partial_smem_bytes<5>(gh, gw, JtwOp<5>::kPerKnot);
+  return 0;
+}
+
+// Grid rows per band of the partial pass (0 where one row does not fit).
+extern "C" int cct_window_apply_jtw_band_rows(int k, int gh, int gw) {
+  if (k == 2) return cct::band_rows<2>(gh, gw, JtwOp<2>::kPerKnot);
+  if (k == 5) return cct::band_rows<5>(gh, gw, JtwOp<5>::kPerKnot);
   return 0;
 }

@@ -101,6 +101,7 @@ struct BlockDiagOp {
 extern "C" int cct_window_block_diag(const void* jwin, const void* base,
                                      int base_sn, int base_sc, const void* w,
                                      int n, int gh, int gw, int k,
+                                     int band_rows,
                                      void* partial, int nblocks, void* out,
                                      void* stream) {
   const float* j = static_cast<const float*>(jwin);
@@ -111,10 +112,10 @@ extern "C" int cct_window_block_diag(const void* jwin, const void* base,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k == 2)
     return static_cast<int>(cct::launch_window_reduce<2, BlockDiagOp<2>>(
-        j, b, base_sn, base_sc, wt, n, gh, gw, p, nblocks, o, s));
+        j, b, base_sn, base_sc, wt, n, gh, gw, band_rows, p, nblocks, o, s));
   if (k == 5)
     return static_cast<int>(cct::launch_window_reduce<5, BlockDiagOp<5>>(
-        j, b, base_sn, base_sc, wt, n, gh, gw, p, nblocks, o, s));
+        j, b, base_sn, base_sc, wt, n, gh, gw, band_rows, p, nblocks, o, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -131,5 +132,12 @@ extern "C" long long cct_window_block_diag_smem_bytes(int k, int gh, int gw) {
     return cct::partial_smem_bytes<2>(gh, gw, BlockDiagOp<2>::kPerKnot);
   if (k == 5)
     return cct::partial_smem_bytes<5>(gh, gw, BlockDiagOp<5>::kPerKnot);
+  return 0;
+}
+
+// Grid rows per band of the partial pass (0 where one row does not fit).
+extern "C" int cct_window_block_diag_band_rows(int k, int gh, int gw) {
+  if (k == 2) return cct::band_rows<2>(gh, gw, BlockDiagOp<2>::kPerKnot);
+  if (k == 5) return cct::band_rows<5>(gh, gw, BlockDiagOp<5>::kPerKnot);
   return 0;
 }

@@ -8,8 +8,8 @@
 //
 // 1. window_partial_kernel: each block walks a fixed set of observation
 //    tiles (tile i of block b covers observations (b + i*gridDim.x)*T ...)
-//    and keeps the whole accumulator grid (gh*gw*R floats) in shared
-//    memory.  Per tile:
+//    and keeps its band's rows of the accumulator grid (band_rows*gw*R
+//    floats) in shared memory.  Per tile:
 //    - Loads in flight: tiles are staged with cp.async (16-byte copies
 //      where N % 4 == 0 and j_win is 16-byte aligned, 4-byte copies
 //      otherwise).  Where it fits, a ring of two 64-observation stages lets
@@ -28,7 +28,18 @@
 //      to different warps).  The owner visits the set bits of row mask AND
 //      column mask in increasing order, so its observations are added in
 //      tile order, with no atomics and independent of scheduling.
-//    The block's grid is written to its row of the scratch array.
+//    The block's band is written to its slice of its row of the scratch
+//    array.
+//    Bands: where the whole (gh, gw, R) grid leaves no room for a stage in
+//    one block, the launch grid gets a second dimension over bands of
+//    band_rows grid rows (the fewest bands whose compact layout fits; see
+//    band_rows()).  Block (b, y) walks the same tiles as block (b, 0) and
+//    keeps only band y's rows: its row masks cover those rows, so an
+//    observation whose window misses the band is never visited, and the
+//    columns of its window slots outside the band are not prepared.  Each
+//    knot belongs to one band, so every knot's sum runs over the same
+//    tiles in the same order whatever the band count: results do not
+//    depend on it.  A grid that fits one block takes one band.
 // 2. window_sum_kernel: a block of kSumWarps warps takes 32 consecutive
 //    output values; warp y sums rows y, y + kSumWarps, ... in order, and
 //    warp 0 adds the kSumWarps sums in warp order.
@@ -49,10 +60,10 @@ namespace cct {
 
 // The tile layout of a partial-pass block.  kRing: two stages of 64
 // observations, one loading while one is reduced.  Otherwise (compact): one
-// stage of 32.  Largest square grids of one block (227 KB), ring / compact:
-// K=2 JtW 155 / 166, block diagonal 127 / 135; K=5 JtW 84 / 102, block
-// diagonal 48 / 58.  The compact layout takes every grid the single-stage
-// kernel it replaced took.
+// stage of 32.  Largest square grids of one block (227 KB) in one band,
+// ring / compact: K=2 JtW 155 / 166, block diagonal 127 / 135; K=5 JtW
+// 84 / 102, block diagonal 48 / 58.  Past those the grid is split into
+// bands of rows (band_rows()).
 template <int K, bool kRing>
 struct Tile {
   // Observations per tile (32 per mask word).  Small tiles keep four
@@ -96,13 +107,36 @@ inline bool use_ring(int gh, int gw, int per_knot) {
   return layout_smem_bytes<K, true>(gh, gw, per_knot) <= kMaxSmemBytes;
 }
 
-// Shared memory of one partial-pass block in the layout it takes at this
-// grid.  Mirrored by reduction_smem_bytes in ba/window_cuda.py.
+// Shared memory of one partial-pass block that keeps `rows` grid rows, in
+// the layout it takes there.
+template <int K>
+inline size_t band_smem_bytes(int rows, int gw, int per_knot) {
+  return use_ring<K>(rows, gw, per_knot)
+             ? layout_smem_bytes<K, true>(rows, gw, per_knot)
+             : layout_smem_bytes<K, false>(rows, gw, per_knot);
+}
+
+// Rows per band: ceil(gh / nb) for the fewest bands nb whose compact layout
+// fits one block; gh where the whole grid fits.  0 where one grid row does
+// not fit.  Mirrored by reduction_plan in ba/window_cuda.py.
+template <int K>
+inline int band_rows(int gh, int gw, int per_knot) {
+  for (int nb = 1; nb <= gh; ++nb) {
+    const int rows = (gh + nb - 1) / nb;
+    if (layout_smem_bytes<K, false>(rows, gw, per_knot) <= kMaxSmemBytes)
+      return rows;
+  }
+  return 0;
+}
+
+// Shared memory of one partial-pass block at this grid (its band's rows, in
+// its layout; one row in the compact layout where even that does not fit).
+// Mirrored by reduction_smem_bytes in ba/window_cuda.py.
 template <int K>
 inline size_t partial_smem_bytes(int gh, int gw, int per_knot) {
-  return use_ring<K>(gh, gw, per_knot)
-             ? layout_smem_bytes<K, true>(gh, gw, per_knot)
-             : layout_smem_bytes<K, false>(gh, gw, per_knot);
+  const int rows = band_rows<K>(gh, gw, per_knot);
+  return rows > 0 ? band_smem_bytes<K>(rows, gw, per_knot)
+                  : layout_smem_bytes<K, false>(1, gw, per_knot);
 }
 
 __device__ __forceinline__ unsigned shared_addr(const void* p) {
@@ -193,7 +227,7 @@ __global__ void __launch_bounds__(Tile<K, kRing>::kThreads)
 window_partial_kernel(const float* __restrict__ jwin,
                       const int* __restrict__ base, int base_sn, int base_sc,
                       const float* __restrict__ per_obs, int n_obs, int gh,
-                      int gw, float* __restrict__ partial) {
+                      int gw, int band_rows, float* __restrict__ partial) {
   using Tl = Tile<K, kRing>;
   constexpr int T = Tl::kObs;
   constexpr int NT = Tl::kThreads;
@@ -206,10 +240,13 @@ window_partial_kernel(const float* __restrict__ jwin,
   static_assert(Op::kPerObs <= 2, "a stage holds two floats per observation");
   static_assert(NT > T, "threads past the first kObs prepare the columns");
   extern __shared__ __align__(16) float smem[];
-  const int knots = gh * gw;
+  // this block's band: grid rows h0 .. h0 + hb - 1
+  const int h0 = blockIdx.y * band_rows;
+  const int hb = min(band_rows, gh - h0);
+  const int knots = hb * gw;
   float* ring = smem;
   unsigned* rowm = reinterpret_cast<unsigned*>(ring + P * Q);
-  unsigned* colm = rowm + gh * W;
+  unsigned* colm = rowm + band_rows * W;
   float* acc = reinterpret_cast<float*>(colm + gw * W);
   for (int i = threadIdx.x; i < knots * R; i += NT) acc[i] = 0.0f;
 
@@ -261,9 +298,9 @@ window_partial_kernel(const float* __restrict__ jwin,
       const bool valid = t < count;
       const int bx = valid ? sb[t] : 0;
       const int by = valid ? sb[T + t] : 0;
-      for (int h = 0; h < gh; ++h) {
+      for (int h = 0; h < hb; ++h) {
         const unsigned m = __ballot_sync(
-            0xffffffffu, valid && static_cast<unsigned>(h - by) < 4u);
+            0xffffffffu, valid && static_cast<unsigned>(h0 + h - by) < 4u);
         if (lane == (h & 31)) rowm[h * W + warp] = m;
       }
       for (int w = 0; w < gw; ++w) {
@@ -273,10 +310,14 @@ window_partial_kernel(const float* __restrict__ jwin,
       }
       if (valid) sb[t] = (by * 4 + bx) * K;
     } else {
+      const int* sby = sb + T;
       for (int j = t - T; j < 16 * T; j += NT - T) {
         const int p = j % T;
-        if (p < count)
-          Op::template prepare<S>(sj + p, j / T, sp + p * Op::kPerObs);
+        const int slot = j / T;
+        // slots whose grid row is outside the band are never read
+        if (p < count &&
+            static_cast<unsigned>(sby[p] + slot / 4 - h0) < static_cast<unsigned>(hb))
+          Op::template prepare<S>(sj + p, slot, sp + p * Op::kPerObs);
       }
     }
     __syncthreads();
@@ -292,7 +333,7 @@ window_partial_kernel(const float* __restrict__ jwin,
         any |= hit[q];
       }
       if (!any) continue;
-      const int hw = (h * 4 + w) * K;
+      const int hw = ((h0 + h) * 4 + w) * K;
       float a[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r] = acc[knot * R + r];
@@ -313,7 +354,7 @@ window_partial_kernel(const float* __restrict__ jwin,
   }
   cp_async_wait<0>();
   __syncthreads();
-  float* row = partial + static_cast<size_t>(b) * knots * R;
+  float* row = partial + (static_cast<size_t>(b) * gh + h0) * gw * R;
   for (int i = t; i < knots * R; i += NT) row[i] = acc[i];
 }
 
@@ -346,8 +387,8 @@ window_sum_kernel(const float* __restrict__ partial, int nblocks, int knots,
 }
 
 template <int K, class Op, bool kRing>
-cudaError_t set_partial_smem(int gh, int gw, size_t* smem) {
-  *smem = layout_smem_bytes<K, kRing>(gh, gw, Op::kPerKnot);
+cudaError_t set_partial_smem(int rows, int gw, size_t* smem) {
+  *smem = layout_smem_bytes<K, kRing>(rows, gw, Op::kPerKnot);
   if (*smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(window_partial_kernel<K, Op, kRing>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -355,9 +396,9 @@ cudaError_t set_partial_smem(int gh, int gw, size_t* smem) {
 }
 
 template <int K, class Op, bool kRing>
-int blocks_per_sm(int gh, int gw) {
+int blocks_per_sm(int rows, int gw) {
   size_t smem = 0;
-  if (set_partial_smem<K, Op, kRing>(gh, gw, &smem) != cudaSuccess) return 0;
+  if (set_partial_smem<K, Op, kRing>(rows, gw, &smem) != cudaSuccess) return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, window_partial_kernel<K, Op, kRing>,
@@ -366,40 +407,49 @@ int blocks_per_sm(int gh, int gw) {
   return blocks;
 }
 
-// Partial-pass blocks that fit on one SM at once (0 if none does).
+// Partial-pass blocks that fit on one SM at once at this grid's band (0 if
+// none does).
 template <int K, class Op>
 int window_reduce_blocks_per_sm(int gh, int gw) {
-  return use_ring<K>(gh, gw, Op::kPerKnot) ? blocks_per_sm<K, Op, true>(gh, gw)
-                                           : blocks_per_sm<K, Op, false>(gh, gw);
+  const int rows = band_rows<K>(gh, gw, Op::kPerKnot);
+  if (rows == 0) return 0;
+  return use_ring<K>(rows, gw, Op::kPerKnot)
+             ? blocks_per_sm<K, Op, true>(rows, gw)
+             : blocks_per_sm<K, Op, false>(rows, gw);
 }
 
 template <int K, class Op, bool kRing>
 cudaError_t launch_partial(const float* jwin, const int* base, int base_sn,
                            int base_sc, const float* per_obs, int n, int gh,
-                           int gw, float* partial, int nblocks,
+                           int gw, int rows, float* partial, int nblocks,
                            cudaStream_t stream) {
   size_t smem = 0;
-  const cudaError_t err = set_partial_smem<K, Op, kRing>(gh, gw, &smem);
+  const cudaError_t err = set_partial_smem<K, Op, kRing>(rows, gw, &smem);
   if (err != cudaSuccess) return err;
+  const dim3 grid(nblocks, (gh + rows - 1) / rows);
   window_partial_kernel<K, Op, kRing>
-      <<<nblocks, Tile<K, kRing>::kThreads, smem, stream>>>(
-          jwin, base, base_sn, base_sc, per_obs, n, gh, gw, partial);
+      <<<grid, Tile<K, kRing>::kThreads, smem, stream>>>(
+          jwin, base, base_sn, base_sc, per_obs, n, gh, gw, rows, partial);
   return cudaGetLastError();
 }
 
+// `rows`: grid rows per band (band_rows() unless a caller asks for
+// narrower bands; the results are the same).
 template <int K, class Op>
 cudaError_t launch_window_reduce(const float* jwin, const int* base,
                                  int base_sn, int base_sc,
                                  const float* per_obs, int n, int gh, int gw,
-                                 float* partial, int nblocks, float* out,
-                                 cudaStream_t stream) {
+                                 int rows, float* partial, int nblocks,
+                                 float* out, cudaStream_t stream) {
+  if (rows < 1 || rows > gh || nblocks < 1) return cudaErrorInvalidValue;
   cudaError_t err =
-      use_ring<K>(gh, gw, Op::kPerKnot)
+      use_ring<K>(rows, gw, Op::kPerKnot)
           ? launch_partial<K, Op, true>(jwin, base, base_sn, base_sc, per_obs,
-                                        n, gh, gw, partial, nblocks, stream)
+                                        n, gh, gw, rows, partial, nblocks,
+                                        stream)
           : launch_partial<K, Op, false>(jwin, base, base_sn, base_sc,
-                                         per_obs, n, gh, gw, partial, nblocks,
-                                         stream);
+                                         per_obs, n, gh, gw, rows, partial,
+                                         nblocks, stream);
   if (err != cudaSuccess) return err;
   const int cols = gh * gw * Op::kPerKnot;
   window_sum_kernel<Op><<<(cols + 31) / 32, dim3(32, kSumWarps), 0, stream>>>(

@@ -89,3 +89,48 @@ def eval_surface_with_jac(grid, gxy):
     du_dx = torch.einsum("nx,nxc->nc", dwx, rows)
     du_dy = torch.einsum("nx,nxc->nc", wx, drows)
     return val, torch.stack([du_dx, du_dy], dim=-1)
+
+
+# ------------------------- fixed-base window form -------------------------
+#
+# The noncentral model evaluates its grids as the reference package does
+# (ops/bspline.py:60-104 there, a dynamic slice): the 4×4 window starts at
+# base = floor(g) - 1, a negative start counts from the grid's far end, the
+# start is then held inside the grid, and the weights use the base itself.
+# Its projection keeps g inside the calibrated area, where windows lie
+# inside the grid and this form agrees with the masked one above.
+
+
+def gather_window_2d(grid, gxy):
+    """4×4 windows (N, 4, 4, C) [y, x, C] of a (H, W, C) grid at grid coords
+    gxy (N, 2), and the window bases (bx, by) (N,) as int64."""
+    h, w = grid.shape[:2]
+    base = window_base(gxy)
+    bx, by = base[:, 0], base[:, 1]
+    off = torch.arange(4, device=gxy.device)
+
+    def start(b, size):
+        return torch.where(b < 0, b + size, b).clamp(0, size - 4)[:, None]
+
+    iy = start(by, h) + off
+    ix = start(bx, w) + off
+    return grid[iy[:, :, None], ix[:, None, :]], bx, by
+
+
+def fixed_base_weights(bx, by, gxy, derivative=False):
+    """Per-axis weights (wx, wy) (N, 4) of windows with bases (bx, by) at
+    grid coords gxy (and their derivatives (dwx, dwy) with
+    ``derivative``)."""
+    tx = gxy[:, 0] - (bx + 1).to(gxy.dtype)
+    ty = gxy[:, 1] - (by + 1).to(gxy.dtype)
+    w = (cubic_bspline_weights(tx), cubic_bspline_weights(ty))
+    if not derivative:
+        return w
+    return w + (cubic_bspline_weight_derivs(tx), cubic_bspline_weight_derivs(ty))
+
+
+def eval_window_fixed_base(window, bx, by, gxy):
+    """Surface value (N, C) of pre-gathered windows with bases (bx, by) at
+    grid coords gxy: the window stays pinned while gxy moves."""
+    wx, wy = fixed_base_weights(bx, by, gxy)
+    return torch.einsum("ny,nx,nyxc->nc", wy, wx, window)

@@ -1,13 +1,19 @@
-"""The synthetic bundle-adjustment problem of the benchmark.
+"""The synthetic bundle-adjustment problems of the benchmark.
 
 A CentralGeneric mono problem sized like a real calibration run: 256 poses
 of a 1024-point board seen by a 640×480 camera with a 16×16 direction grid,
 in (poses × points) grid layout (262,144 rows).  The random draws come from
 numpy in the same order as the reference package's ``bench.py``, so the
 state is the same; the observations come from this package's projection.
+
+Its NoncentralGeneric twin takes the same draws, adds a smooth line-origin
+field and projects through the noncentral model (the recipe of the
+reference package's ``tests/test_ba.py:138-210`` at the bench's size).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -18,7 +24,9 @@ from camera_calibration_torch.ba.state import (
 )
 from camera_calibration_torch.config import default_device
 from camera_calibration_torch.models import central_generic as cg
-from camera_calibration_torch.ops import se3
+from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models.base import replace
+from camera_calibration_torch.ops import manifolds, se3
 
 
 def pinhole_model(w, h, gw, gh, device=None, dtype=torch.float32):
@@ -40,10 +48,10 @@ def pinhole_model(w, h, gw, gh, device=None, dtype=torch.float32):
     )
 
 
-def make_bench_problem(w=640, h=480, gres=16, n_points=1024, n_poses=256,
-                       seed=0, device=None, dtype=torch.float32):
-    """(state, data tuple, meta) of the benchmark problem on ``device``."""
-    device = default_device(device)
+def _bench_draws(w, h, gres, n_points, n_poses, seed, device, dtype):
+    """The bench problem's unperturbed state (from ``bench.py``'s numpy
+    draws) and every (pose, point) pair's camera-space point, float64 on
+    the CPU, (M·P, 3) pose-major."""
     rng = np.random.default_rng(seed)
     model = pinhole_model(w, h, gres, gres, device, dtype)
 
@@ -67,16 +75,18 @@ def make_bench_problem(w=640, h=480, gres=16, n_points=1024, n_poses=256,
         cam_q_rig=t([[1.0, 0.0, 0.0, 0.0]]), cam_t_rig=t(np.zeros((1, 3))),
         points=t(pts), intrinsics=(model,),
     )
-
-    # Exact observations of every (pose, point) pair, in one batch.
     x_cam = (se3.quat_rotate(rig_q[:, None, :], torch.as_tensor(pts)[None])
              + torch.as_tensor(rig_t)[:, None, :])
-    pxs, _, valid = cg.project_points(model, t(x_cam.reshape(-1, 3)),
-                                      max_iterations=40)
+    return state, x_cam.reshape(-1, 3)
+
+
+def _grid_table(pxs, valid, w, h, m, p):
+    """The (M, P) grid-layout table of projected pixels: rows valid where
+    the projection is and lies 1 px inside the image."""
+    device = pxs.device
     inside = (valid & (pxs[:, 0] > 1) & (pxs[:, 0] < w - 1)
               & (pxs[:, 1] > 1) & (pxs[:, 1] < h - 1))
-    m, p = n_poses, n_points
-    table = ObservationTable(
+    return ObservationTable(
         imageset=torch.arange(m, device=device).repeat_interleave(p),
         camera=torch.zeros(m * p, dtype=torch.int64, device=device),
         point=torch.arange(p, device=device).repeat(m),
@@ -84,8 +94,88 @@ def make_bench_problem(w=640, h=480, gres=16, n_points=1024, n_poses=256,
         valid=inside,
         grid_shape=(m, p),
     )
+
+
+def make_bench_problem(w=640, h=480, gres=16, n_points=1024, n_poses=256,
+                       seed=0, device=None, dtype=torch.float32):
+    """(state, data tuple, meta) of the benchmark problem on ``device``."""
+    device = default_device(device)
+    state, x_cam = _bench_draws(w, h, gres, n_points, n_poses, seed, device,
+                                dtype)
+    # Exact observations of every (pose, point) pair, in one batch.
+    pxs, _, valid = cg.project_points(
+        state.intrinsics[0], x_cam.to(dtype=dtype, device=device),
+        max_iterations=40)
+    table = _grid_table(pxs, valid, w, h, n_poses, n_points)
     state = perturb_bench_state(state, seed=seed + 1)
-    return state, (table,), {"n_obs": int(inside.sum()), "gres": gres}
+    return state, (table,), {"n_obs": int(table.valid.sum()), "gres": gres}
+
+
+def make_noncentral_bench_problem(w=640, h=480, gres=16, n_points=1024,
+                                  n_poses=256, seed=0, device=None,
+                                  dtype=torch.float32):
+    """(state, data tuple, meta) of the bench problem with a
+    NoncentralGeneric camera: the bench's draws and direction grid, the
+    line-origin field (0.002·sin(x/2), 0.002·cos(y/2), 0) over the knots,
+    observations projected through that model (80 LM iterations), and the
+    state perturbed by :func:`perturb_noncentral_state`."""
+    device = default_device(device)
+    state, x_cam = _bench_draws(w, h, gres, n_points, n_poses, seed, device,
+                                dtype)
+    central = state.intrinsics[0]
+    yy, xx = np.meshgrid(np.arange(gres), np.arange(gres), indexing="ij")
+    origins = np.stack([0.002 * np.sin(xx / 2.0), 0.002 * np.cos(yy / 2.0),
+                        np.zeros_like(xx, float)], -1)
+    model = replace(ncg.from_central(central),
+                    point_grid=torch.as_tensor(origins, dtype=dtype,
+                                               device=device))
+    pxs, _, valid = ncg.project_points(
+        model, x_cam.to(dtype=dtype, device=device), max_iterations=80)
+    table = _grid_table(pxs, valid, w, h, n_poses, n_points)
+    state = dataclasses.replace(state, intrinsics=(model,))
+    state = perturb_noncentral_state(state, seed=seed + 7)
+    return state, (table,), {"n_obs": int(table.valid.sum()), "gres": gres}
+
+
+def perturb_noncentral_state(state: BAState, seed) -> BAState:
+    """Noise on every group of a noncentral problem (the recipe of the
+    reference package's ``tests/test_ba.py:190-210``): rig and camera poses
+    by 0.005 (rotation and translation, the first camera kept), points by
+    0.002, then, from ``seed + 1``, knot directions by 5e-4 in their
+    tangent planes and knot origins by 5e-4."""
+    rng = np.random.default_rng(seed)
+    m = state.rig_q_global.shape[0]
+    c = state.cam_q_rig.shape[0]
+
+    def draw(sigma, shape, like):
+        return torch.as_tensor(rng.normal(0, sigma, shape), dtype=like.dtype,
+                               device=like.device)
+
+    rig = torch.cat([draw(0.005, (m, 3), state.rig_t_global),
+                     draw(0.005, (m, 3), state.rig_t_global)], -1)
+    rig_q, rig_t = se3.retract_pose(state.rig_q_global, state.rig_t_global,
+                                    rig)
+    cam = torch.cat([draw(0.005, (c, 3), state.cam_t_rig),
+                     draw(0.005, (c, 3), state.cam_t_rig)], -1)
+    cam[0] = 0.0  # gauge anchor
+    cam_q, cam_t = se3.retract_pose(state.cam_q_rig, state.cam_t_rig, cam)
+    points = state.points + draw(0.002, tuple(state.points.shape),
+                                 state.points)
+    rng2 = np.random.default_rng(seed + 1)
+    intr = []
+    for model in state.intrinsics:
+        gh, gw = model.grid_height, model.grid_width
+        dg = model.direction_grid
+        intr.append(replace(
+            model,
+            direction_grid=manifolds.retract_direction(
+                dg, torch.as_tensor(rng2.normal(0, 5e-4, (gh, gw, 2)),
+                                    dtype=dg.dtype, device=dg.device)),
+            point_grid=model.point_grid + torch.as_tensor(
+                rng2.normal(0, 5e-4, (gh, gw, 3)), dtype=dg.dtype,
+                device=dg.device)))
+    return BAState(rig_q_global=rig_q, rig_t_global=rig_t, cam_q_rig=cam_q,
+                   cam_t_rig=cam_t, points=points, intrinsics=tuple(intr))
 
 
 def perturb_bench_state(state: BAState, seed) -> BAState:

@@ -16,20 +16,31 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    shapes of the benchmark problem's main path (262,144 observations, 16×16
    grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera
    (the window ops on random inputs, the projections on 262,144 random
-   pixels of a 1920×1080 pinhole camera), and with K = 5 window Jacobians;
-4. drives the main path: ``optimize`` on the full-size benchmark problem in
-   the two-pass form and in the cached-blocks form, with the launch counts
-   set to 0 just before and read just after, checks that every kernel ran
-   and that the paired cost falls, and compares one LM step through the
-   kernels with one through the plain versions;
+   pixels of a 1920×1080 pinhole camera), and with K = 5 window Jacobians:
+   at 45×79 the K = 5 block diagonal runs in bands of grid rows; narrower
+   bands than the plan's must give bit-identical results at 16×16;
+4. drives the main paths, each with the launch counts set to 0 just before
+   and read just after: ``optimize`` on the full-size benchmark problem in
+   the two-pass and cached-blocks forms, with ``solver="auto"`` (it
+   resolves to ``schur``), ``"schur_direct"``, ``"schur_direct_points"``,
+   ``"pcg"``, ``block_chunk``, ``debug_verify`` and ``profile_dir``; and on
+   the NoncentralGeneric twin of the bench problem in both step forms
+   (the K = 5 window kernels).  It checks that every kernel of a path ran
+   and that the paired cost falls in every run, and compares one LM step
+   through the kernels with one through the plain versions, central and
+   noncentral;
 5. times every kernel, its plain version and, for the two matvecs, a
    torch.sparse product as the library yardstick, with CUDA events around
    calls from Python (``ms``, ``plain_ms``, ``library_ms``), and every
    kernel again as one replay of a CUDA graph of 100 calls (``graph_ms``:
-   the card's time alone, without the host's per-call cost); the two
-   window reductions also at K = 5 (16×16) and at 45×79, the two
-   projections also at 45×79; and the LM iterations per second of both
-   step forms with the host clock;
+   the card's time alone, without the host's per-call cost); the three
+   window kernels also at K = 5 on the noncentral bench's ``j_win``, the
+   two reductions also at K = 5 and K = 2 at 45×79 (with a torch.sparse
+   JᵀW·s beside them, and at K = 5 also in twice the bands, which is what
+   a band costs), the two projections also at 45×79; the LM iterations
+   per second of both step forms, of each solver mode and of the
+   noncentral path with the host clock; and the dense direct solve's
+   assembly and Cholesky apart;
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
@@ -175,6 +186,7 @@ def main() -> int:
     from camera_calibration_torch.ops import manifolds
 
     t_start = time.perf_counter()
+    rows_k5 = {}
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -199,6 +211,12 @@ def main() -> int:
                 f"shared, {per_sm} blocks of {cgc.threads(gh_, gw_, blocks)} "
                 f"threads per SM, {nblocks} persistent blocks for "
                 f"{N_PROJECTION} points on {_cuda.num_sms(dev)} SMs")
+    for name, per_knot in (("window_apply_jtw", 5), ("window_block_diag", 15)):
+        layout, rows = wc.reduction_plan(45, 79, 5, per_knot)
+        log(f"[2] {name} K=5 at 45x79: {'ring' if layout == wc.RING else 'compact'}"
+            f" layout, bands of {rows} rows ({wc.reduction_bands(45, 79, 5, per_knot)[1]}"
+            f" bands), {wc.reduction_smem_bytes(45, 79, 5, per_knot)} B shared, "
+            f"{wc._resident_blocks(name, 5, 45, 79, dev.index)} blocks per SM")
 
     # ------------------------------------------ 3. kernels vs plain versions
     rng = np.random.default_rng(0)
@@ -340,66 +358,182 @@ def main() -> int:
     check_blocks(hd, dirs_hd, g0_hd, options.proj_iterations, "1080p 45x79")
     random_windows = {}
     for k, (hh, ww), nn in ((2, (gh2, gw2), n2), (5, (gh2, gw2), n2),
-                            (5, (gh, gw), n_obs), (2, (45, 79), n_obs)):
+                            (5, (gh, gw), n_obs), (2, (45, 79), n_obs),
+                            (5, (45, 79), n_obs)):
         jw = torch.as_tensor(rng.normal(0, 1, (32 * k, nn)),
                              dtype=torch.float32, device=dev)
         base = torch.as_tensor(
             np.stack([rng.integers(-3, ww, nn), rng.integers(-3, hh, nn)], 1),
             dtype=torch.int32, device=dev)
-        check_window(jw, base, hh, ww, k, f"random {hh}x{ww} K={k}")
+        errs = check_window(jw, base, hh, ww, k, f"random {hh}x{ww} K={k}")
         if nn == n_obs:
             random_windows[(hh, ww, k)] = (jw, base)
+        if (hh, ww, k) == (45, 79, 5):
+            require(wc.reduction_bands(hh, ww, k, 15)[1] > 1,
+                    "the K=5 block diagonal at 45x79 is not banded")
+            for name, err in errs.items():
+                rows_k5.setdefault(name, {})["err_45x79"] = err
+    # The NoncentralGeneric twin of the bench problem: its real K=5 j_win.
+    t1_ = time.perf_counter()
+    nstate, ndata, nmeta = problems.make_noncentral_bench_problem(device=dev)
+    nblocks0, _ = lm_pcg.compute_blocks(ndata, nstate, (ndata[0].pixel,),
+                                        options)
+    nb0 = nblocks0[0]
+    log(f"[3] noncentral bench problem: {nmeta['n_obs']} valid observations, "
+        f"made in {time.perf_counter() - t1_:.1f} s")
+    errs = check_window(nb0.intr.j_win, nb0.intr.base_xy, gh, gw, 5,
+                        "noncentral bench 16x16 K=5", w=nb0.weight)
+    for name, err in errs.items():
+        rows_k5.setdefault(name, {})["max_abs_err"] = err
+    # Bands narrower than the plan's (one band at 16x16) must give
+    # bit-identical results: every knot sums the same tiles in order.
+    for k, (jw, base) in ((2, (b0.intr.j_win, b0.intr.base_xy)),
+                          (5, random_windows[(gh, gw, 5)])):
+        ws_b = torch.as_tensor(rng.normal(0, 1, (jw.shape[1], 2)),
+                               dtype=torch.float32, device=dev)
+        w_b = torch.as_tensor(rng.uniform(0, 1, jw.shape[1]),
+                              dtype=torch.float32, device=dev)
+        for name, call, per_knot in (
+                ("window_apply_jtw", lambda **kw: wc.window_apply_jtw(
+                    jw, base, ws_b, gh, gw, k, **kw), k),
+                ("window_block_diag", lambda **kw: wc.window_block_diag(
+                    jw, base, w_b, gh, gw, k, **kw), k * (k + 1) // 2)):
+            require(wc.reduction_bands(gh, gw, k, per_knot)[1] == 1,
+                    f"{name} K={k}: not one band at 16x16")
+            whole = call()
+            same = all(bool(torch.equal(whole, call(band_rows=r)))
+                       for r in (1, 5, 8))
+            log(f"    {name} K={k} 16x16 in bands of 1, 5 and 8 rows: "
+                f"bit-identical to one band {same}")
+            require(same, f"{name} K={k}: banded result differs")
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------ 4. main path
+    # ------------------------------------------------------ 4. main paths
+    central_kernels = ("project", "project_blocks", "window_apply_j",
+                       "window_apply_jtw", "window_block_diag")
+    window_kernels = central_kernels[2:]
+
+    def drive(label, st0, dat, runs, kernels):
+        """One path: the counts set to 0, the ``optimize`` runs, the counts
+        read; every kernel of the path launched, the paired cost falls in
+        every run, the state stays finite."""
+        _cuda.reset_launches()
+        t0_ = time.perf_counter()
+        infos = [(form, opts, lm_pcg.optimize(st0, None, None, opts,
+                                              data=dat))
+                 for form, opts in runs]
+        torch.cuda.synchronize()
+        counts = dict(_cuda.launches)
+        log(f"[4] {label} ran in {time.perf_counter() - t0_:.1f} s; launches "
+            f"{json.dumps(counts, sort_keys=True)}")
+        for name in kernels:
+            require(counts.get(name, 0) > 0,
+                    f"{label}: kernel {name} never launched")
+        for form, opts, (st, info) in infos:
+            hist = info["history"]
+            for h in hist:
+                log(f"    {label}, {form} it {h['iteration']}: cost "
+                    f"{h['cost']:.6g} -> {h['new_cost']:.6g} (paired "
+                    f"{h['paired_cost']:.6g} -> {h['paired_new_cost']:.6g}) "
+                    f"accepted {h['accepted']} pcg {h['pcg_iterations']}")
+            require(hist and hist[0]["accepted"]
+                    and hist[0]["paired_new_cost"] < hist[0]["paired_cost"],
+                    f"{label}, {form}: the first step did not lower the "
+                    "paired cost")
+            require(tuple(st.points.shape) == tuple(st0.points.shape)
+                    and bool(torch.isfinite(st.points).all())
+                    and bool(torch.isfinite(st.rig_t_global).all()),
+                    f"{label}, {form}: non-finite or misshapen state")
+        return counts
+
     two_pass = dataclasses.replace(options, max_lm_iterations=3)
     cached = dataclasses.replace(two_pass, lm_steps_per_call=3)
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    s_two, info_two = lm_pcg.optimize(state, None, None, two_pass, data=data)
-    s_cached, info_cached = lm_pcg.optimize(state, None, None, cached,
-                                            data=data)
-    torch.cuda.synchronize()
-    launches = dict(_cuda.launches)
-    log(f"[4] main path ran in {time.perf_counter() - t0:.1f} s; launches "
-        f"{json.dumps(launches, sort_keys=True)}")
-    for name in ("project", "project_blocks", "window_apply_j",
-                 "window_apply_jtw", "window_block_diag"):
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched")
-    for label, info, st in (("two-pass", info_two, s_two),
-                            ("cached-blocks", info_cached, s_cached)):
-        hist = info["history"]
-        for h in hist:
-            log(f"    {label} it {h['iteration']}: cost {h['cost']:.6g} -> "
-                f"{h['new_cost']:.6g} (paired {h['paired_cost']:.6g} -> "
-                f"{h['paired_new_cost']:.6g}) accepted {h['accepted']} "
-                f"pcg {h['pcg_iterations']}")
-        require(hist and hist[0]["accepted"]
-                and hist[0]["paired_new_cost"] < hist[0]["paired_cost"],
-                f"{label}: the first step did not lower the paired cost")
-        require(tuple(st.points.shape) == tuple(state.points.shape)
-                and bool(torch.isfinite(st.points).all())
-                and bool(torch.isfinite(st.rig_t_global).all()),
-                f"{label}: non-finite or misshapen state")
+    forms = (("two-pass", two_pass), ("cached-blocks", cached))
+    launches = drive("central bench, schur", state, data, forms,
+                     central_kernels)
+    auto = dataclasses.replace(two_pass, solver="auto")
+    resolved = lm_pcg.resolve_solver(auto, state).solver
+    reduced = state.points.shape[0] * 3 + 6 + gh * gw * 2
+    log(f"[4] solver='auto' resolves to {resolved!r} on the bench problem "
+        f"({reduced} reduced unknowns)")
+    require(resolved == ("schur" if reduced > 2048 else "schur_direct"),
+            f"auto resolved to {resolved}")
+    profile_dir = str(_cuda.BUILD_ROOT / "lm_profile")
+    # verify_cost's finite differences need a cost that float32 resolves:
+    # at the start state (cost 2.6e5, float32 spacing 0.016) the cost's
+    # rounding puts an error of several percent on the central difference
+    # (the check's bar is 5%), so debug_verify runs from the state after
+    # one LM iteration (cost about 68)
+    verify_state, _ = lm_pcg.optimize(
+        state, None, None, dataclasses.replace(two_pass, max_lm_iterations=1),
+        data=data)
+    # the direct solves never apply J_intr to a vector
+    direct_kernels = central_kernels[:2] + central_kernels[3:]
+    for label, st0, run, kernels in (
+            ("central bench, auto", state, auto,
+             central_kernels if resolved == "schur" else direct_kernels),
+            ("central bench, schur_direct", state,
+             dataclasses.replace(two_pass, solver="schur_direct"),
+             direct_kernels),
+            ("central bench, schur_direct_points", state,
+             dataclasses.replace(two_pass, solver="schur_direct_points"),
+             direct_kernels),
+            ("central bench, pcg", state,
+             dataclasses.replace(two_pass, solver="pcg"), central_kernels),
+            ("central bench, block_chunk=65536", state,
+             dataclasses.replace(two_pass, block_chunk=65536),
+             central_kernels),
+            ("central bench after one LM iteration, debug_verify",
+             verify_state, dataclasses.replace(two_pass, debug_verify=True,
+                                               max_lm_iterations=1),
+             central_kernels),
+            ("central bench, profile_dir", state,
+             dataclasses.replace(two_pass, profile_dir=profile_dir,
+                                 max_lm_iterations=1), central_kernels)):
+        drive(label, st0, data, (("two-pass", run),), kernels)
+    require(os.path.exists(os.path.join(profile_dir, "lm_trace.json")),
+            "profile_dir wrote no trace")
+    report = lm_pcg.verify_cost(verify_state, data, options)
+    log(f"    verify_cost after one LM iteration: {json.dumps(report)}")
+    nc_launches = drive("noncentral bench, schur", nstate, ndata, forms,
+                        window_kernels)
 
     # One LM step through the kernels and one through the plain versions,
-    # both on the card, from the same state (the reference package's bar).
+    # both on the card, from the same state (the reference package's bar),
+    # on both models.  The central step runs at λ = 1e-2.  At that λ the
+    # noncentral system is nearly undamped along its ill-conditioned
+    # origin directions, where float32 rounding in the window sums moves
+    # the step by up to 1e-3: so it is held at the λ its first LM step
+    # takes (λ < 0: from the diagonal), and the λ = 1e-2 step is printed
+    # only.
     lam = torch.tensor(1e-2, dtype=torch.float32, device=dev)
-    warm = (seg.pixel,)
-    out_k = lm_pcg.lm_step(state, warm, lam, data, options)
-    before = dict(_cuda.launches)
-    with plain_routes(cgc, wc):
-        out_p = lm_pcg.lm_step(state, warm, lam, data, options)
-    require(dict(_cuda.launches) == before, "the plain step launched a kernel")
-    cost_k, cost_p = float(out_k[5]), float(out_p[5])
-    cost_rel = abs(cost_k - cost_p) / max(abs(cost_p), 1e-30)
-    dp = (out_k[0].points - out_p[0].points).abs().max()
-    pts_rel = float(dp) / float(out_p[0].points.abs().max())
-    log(f"    one LM step, kernels vs plain on the card: new cost {cost_k:.6g}"
-        f" vs {cost_p:.6g} (rel {cost_rel:.3e}), points max|Δ|/scale "
-        f"{pts_rel:.3e}, pcg {out_k[6]} vs {out_p[6]}")
-    require(cost_rel <= STEP_REL_TOL and pts_rel <= STEP_REL_TOL,
-            "LM step through the kernels disagrees with the plain step")
+    lam_first = torch.tensor(-1.0, dtype=torch.float32, device=dev)
+    for label, st0, dat, lam_, held in (
+            ("central", state, data, lam, True),
+            ("noncentral", nstate, ndata, lam_first, True),
+            ("noncentral, λ = 1e-2", nstate, ndata, lam, False)):
+        warm = tuple(s_.pixel for s_ in dat)
+        out_k = lm_pcg.lm_step(st0, warm, lam_, dat, options)
+        before = dict(_cuda.launches)
+        with plain_routes(cgc, wc):
+            out_p = lm_pcg.lm_step(st0, warm, lam_, dat, options)
+        require(dict(_cuda.launches) == before,
+                "the plain step launched a kernel")
+        cost_k, cost_p = float(out_k[5]), float(out_p[5])
+        cost_rel = abs(cost_k - cost_p) / max(abs(cost_p), 1e-30)
+        dp = (out_k[0].points - out_p[0].points).abs().max()
+        pts_rel = float(dp) / float(out_p[0].points.abs().max())
+        # the step's λ: halved after an accepted step, doubled after a
+        # rejected one
+        lam_used = float(out_k[2]) * (2.0 if out_k[3] else 0.5)
+        log(f"    one {label} LM step (λ {lam_used:.4g}), kernels vs "
+            f"plain on the card: new cost {cost_k:.6g} vs {cost_p:.6g} (rel "
+            f"{cost_rel:.3e}), points max|Δ|/scale {pts_rel:.3e}, pcg "
+            f"{out_k[6]} vs {out_p[6]}{'' if held else ' (printed only)'}")
+        require(not held or (cost_rel <= STEP_REL_TOL
+                             and pts_rel <= STEP_REL_TOL),
+                f"{label} LM step through the kernels disagrees with the "
+                "plain step")
 
     # ----------------------------------------------------------- 5. times
     t0 = time.perf_counter()
@@ -475,6 +609,44 @@ def main() -> int:
             nbytes=jw_bytes + n * 2 * 4 + n * 4 + gh * gw * 4 * 4,
             flops=6 * 3 * inside),
     }
+    # The three window kernels at K=5 on the noncentral bench's j_win (16x16),
+    # launched on the noncentral path.
+    jw5, base5, wt5 = nb0.intr.j_win, nb0.intr.base_xy, nb0.weight
+    n5 = jw5.shape[1]
+    tangent5 = torch.as_tensor(rng.normal(0, 1, (gh, gw, 5)),
+                               dtype=torch.float32, device=dev)
+    ws5 = torch.as_tensor(rng.normal(0, 1, (n5, 2)), dtype=torch.float32,
+                          device=dev)
+    inside5 = float(wc._window_index(base5, gh, gw)[1].sum())
+    j5_csr, jt5_csr = sparse_intrinsics_jacobian(torch, jw5, base5, gh, gw, 5)
+    jw5_bytes = jw5.numel() * 4
+    for key, name, kern, plain, lib, nbytes, flops in (
+            ("window_apply_j", "window_apply_j_k5",
+             lambda: wc.window_apply_j(jw5, base5, tangent5),
+             lambda: wc.window_apply_j_plain(jw5, base5, tangent5),
+             lambda: (j5_csr @ tangent5.reshape(-1, 1)).reshape(n5, 2),
+             jw5_bytes + n5 * 2 * 4 + gh * gw * 5 * 4 + n5 * 2 * 4,
+             4 * 5 * inside5),
+            ("window_apply_jtw", "window_apply_jtw_k5",
+             lambda: wc.window_apply_jtw(jw5, base5, ws5, gh, gw, 5),
+             lambda: wc.window_apply_jtw_plain(jw5, base5, ws5, gh, gw, 5),
+             lambda: (jt5_csr @ ws5.reshape(-1, 1)).reshape(gh, gw, 5),
+             jw5_bytes + n5 * 2 * 4 + n5 * 2 * 4 + gh * gw * 5 * 4,
+             4 * 5 * inside5),
+            ("window_block_diag", "window_block_diag_k5",
+             lambda: wc.window_block_diag(jw5, base5, wt5, gh, gw, 5),
+             lambda: wc.window_block_diag_plain(jw5, base5, wt5, gh, gw, 5),
+             None, jw5_bytes + n5 * 2 * 4 + n5 * 4 + gh * gw * 25 * 4,
+             6 * 15 * inside5)):
+        if lib is not None:
+            e = rel_err(lib().double(), plain().double())
+            require(e <= WINDOW_REL_TOL, f"{name}: sparse yardstick rel err {e}")
+        rows[name] = dict(
+            source=rows[key]["source"], replaces=rows[key]["replaces"],
+            kern=kern, plain=plain, nbytes=nbytes, flops=flops,
+            launch_key=key, counts=nc_launches,
+            max_abs=rows_k5[key]["max_abs_err"],
+            **({} if lib is None else {"library": lib}))
     kernels = []
     for name, r in rows.items():
         ms = time_ms(torch, r["kern"], reps=100, warmup=5)
@@ -483,20 +655,22 @@ def main() -> int:
         library_ms = (time_ms(torch, r["library"], reps=100, warmup=5)
                       if "library" in r else None)
         b_ms, b_by = bound_ms(r["nbytes"], r["flops"])
+        n_launch = r.get("counts", launches).get(r.get("launch_key", name), 0)
         lib_txt = "" if library_ms is None else f", torch.sparse {library_ms:.4f} ms"
         log(f"[5] {name}: {ms:.4f} ms, graph {graph_ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms{lib_txt}, bound {b_ms:.4f} ms by {b_by}; "
-            f"{launches.get(name, 0)} launches on the main path) on {smi}")
+            f"{n_launch} launches on its path) on {smi}")
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches.get(name, 0),
-            "max_abs_err": max_abs[name], "ms": ms, "graph_ms": graph_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms,
+            "replaces": r["replaces"], "launches": n_launch,
+            "max_abs_err": r.get("max_abs", max_abs.get(name)), "ms": ms,
+            "graph_ms": graph_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
         })
 
     # The two reductions beyond the bench shapes, on the random inputs of
-    # [3]: K=5 on the bench grid, K=2 on the 1080p default grid.
+    # [3]: K=5 on the bench grid, K=2 and K=5 (banded block diagonal) on the
+    # 1080p default grid.
     for (hh, ww, k), (jw_x, base_x) in random_windows.items():
         nx = jw_x.shape[1]
         ws_x = torch.as_tensor(rng.normal(0, 1, (nx, 2)), dtype=torch.float32,
@@ -505,20 +679,47 @@ def main() -> int:
                               device=dev)
         inside_x = float(wc._window_index(base_x, hh, ww)[1].sum())
         common = jw_x.numel() * 4 + nx * 2 * 4
-        for name, fn, nbytes, flops in (
+        _, jt_x = sparse_intrinsics_jacobian(torch, jw_x, base_x, hh, ww, k)
+        lib_x = lambda: (jt_x @ ws_x.reshape(-1, 1)).reshape(hh, ww, k)  # noqa: E731
+        e = rel_err(lib_x().double(), wc.window_apply_jtw_plain(
+            jw_x.double(), base_x, ws_x.double(), hh, ww, k))
+        require(e <= WINDOW_REL_TOL, f"sparse JtW {hh}x{ww} K={k}: rel err {e}")
+        for name, fn, lib, nbytes, flops in (
                 ("window_apply_jtw",
-                 lambda: wc.window_apply_jtw(jw_x, base_x, ws_x, hh, ww, k),
-                 common + nx * 2 * 4 + hh * ww * k * 4, 4 * k * inside_x),
+                 lambda **kw: wc.window_apply_jtw(jw_x, base_x, ws_x, hh, ww,
+                                                  k, **kw),
+                 lib_x, common + nx * 2 * 4 + hh * ww * k * 4,
+                 4 * k * inside_x),
                 ("window_block_diag",
-                 lambda: wc.window_block_diag(jw_x, base_x, w_x, hh, ww, k),
-                 common + nx * 4 + hh * ww * k * k * 4,
+                 lambda **kw: wc.window_block_diag(jw_x, base_x, w_x, hh, ww,
+                                                   k, **kw),
+                 None, common + nx * 4 + hh * ww * k * k * 4,
                  6 * (k * (k + 1) // 2) * inside_x)):
             ms = time_ms(torch, fn, reps=100, warmup=5)
             graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+            library_ms = (None if lib is None
+                          else time_ms(torch, lib, reps=100, warmup=5))
             b_ms, b_by = bound_ms(nbytes, flops)
+            per_knot = k if name == "window_apply_jtw" else k * (k + 1) // 2
+            bands = wc.reduction_bands(hh, ww, k, per_knot)[1]
+            lib_txt = ("" if library_ms is None
+                       else f", torch.sparse {library_ms:.4f} ms")
             log(f"[5] {name} random {hh}x{ww} K={k}: {ms:.4f} ms, graph "
-                f"{graph_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; {nx} "
-                f"observations) on {smi}")
+                f"{graph_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}{lib_txt}; "
+                f"{nx} observations, {bands} band(s)) on {smi}")
+            if (hh, ww, k) == (45, 79, 5):
+                rows_k5[name]["at_45x79"] = dict(
+                    ms=ms, graph_ms=graph_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=library_ms, bands=bands,
+                    max_abs_err=rows_k5[name]["err_45x79"])
+                # what a band costs: the same call in twice the bands (the
+                # same layout and bits)
+                rows_b = -(-hh // (2 * bands))
+                graph_2x = time_ms(torch, lambda: fn(band_rows=rows_b),
+                                   reps=100, warmup=1, graph=True)
+                log(f"[5] {name} random {hh}x{ww} K={k} in {2 * bands} "
+                    f"bands of {rows_b} rows: graph {graph_2x:.4f} ms on "
+                    f"{smi}")
 
     # The two projections on the 1080p inputs of [3] (45x79 grid).
     lo_hd, hi_hd = cg._static_clamp_bounds(hd)
@@ -570,6 +771,53 @@ def main() -> int:
             f"iterations each, cost {hist[0]['cost']:.6g} -> "
             f"{hist[-1]['new_cost']:.6g}; {n_obs} rows, {gh}x{gw} grid) "
             f"on {smi}")
+    # Each solver mode and the noncentral path: 6 iterations each, from a
+    # fresh perturbation (host clock).
+    n_mode = 6
+    for label, st0, dat, opts in (
+            [(f"central, {m}", problems.perturb_bench_state(state, seed=100),
+              data, dataclasses.replace(timed, max_lm_iterations=n_mode,
+                                        solver=m))
+             for m in ("auto", "schur_direct", "schur_direct_points", "pcg")]
+            + [(f"noncentral, schur, {form}", nstate, ndata,
+                dataclasses.replace(timed, max_lm_iterations=n_mode,
+                                    lm_steps_per_call=k_))
+               for form, k_ in (("two-pass", 1), ("cached-blocks", n_mode))]):
+        torch.cuda.synchronize()
+        t1_ = time.perf_counter()
+        _, info = lm_pcg.optimize(st0, None, None, opts, data=dat)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1_
+        hist = info["history"]
+        cg_mean = float(np.mean([h["pcg_iterations"] for h in hist]))
+        log(f"[5] LM iterations/s, {label}: {len(hist) / dt:.3f} "
+            f"({len(hist)} iterations in {dt:.3f} s, {cg_mean:.1f} CG "
+            f"iterations each, cost {hist[0]['cost']:.6g} -> "
+            f"{hist[-1]['new_cost']:.6g}) on {smi}")
+
+    # The dense direct solve at bench shapes: the whole solve, and the
+    # Cholesky factorization and solve of an SPD matrix of the reduced
+    # system's size alone (its cost does not depend on the values).
+    blocks_d, _ = lm_pcg.compute_blocks(data, state, (seg.pixel,), options)
+    mask_d = lm_pcg.fix_gauge_mask(state, ())
+    grad_d = lm_pcg._masked(lm_pcg.apply_jtw(data, blocks_d,
+                                             [b.r for b in blocks_d], state),
+                            mask_d)
+    diag_d = lm_pcg.jtwj_block_diag(data, blocks_d, state)
+    f_dim = lm_pcg._flat_offsets(state)[1]
+    a_ = torch.randn(f_dim, f_dim, device=dev)
+    spd = a_ @ a_.T + f_dim * torch.eye(f_dim, device=dev)
+    rhs = torch.randn(f_dim, 1, device=dev)
+    chol_ms = time_ms(torch, lambda: torch.cholesky_solve(
+        rhs, torch.linalg.cholesky_ex(spd)[0]), reps=5, warmup=2)
+    for elim in ("poses", "points"):
+        solve_ms = time_ms(torch, lambda: lm_pcg.schur_direct_solve(
+            data, blocks_d, state, grad_d, diag_d, lam, mask_d, options,
+            eliminate=elim), reps=3, warmup=1)
+        log(f"[5] schur_direct_solve, {elim} eliminated: {solve_ms:.3f} ms "
+            f"(Cholesky of the {f_dim}x{f_dim} system {chol_ms:.3f} ms, "
+            f"assembly and back-substitution {solve_ms - chol_ms:.3f} ms) "
+            f"on {smi}")
     log(f"[5] timing took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------ 6. where the time goes
@@ -577,6 +825,10 @@ def main() -> int:
                  data, dataclasses.replace(timed, max_lm_iterations=2), smi)
     log(f"[6] whole run {time.perf_counter() - t_start:.1f} s")
 
+    for row in kernels:
+        extra = rows_k5.get(row["name"][:-len("_k5")], {}).get("at_45x79")
+        if row["name"].endswith("_k5") and extra:
+            row["at_45x79"] = extra
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,10 @@ machine with a card they run without the suite's conftest:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_cuda.py
 
+The K=5 reductions past one block's shared memory run in bands of grid
+rows (``ba/window_cuda.reduction_plan``); bands of any height give
+bit-identical results.
+
 Tolerances: the window kernels to 1e-4 of the largest value of a float64
 plain reference (the reference package's bar for its TPU kernels); the
 projection kernels to 1e-3 px on points valid in both versions, with at
@@ -70,8 +74,8 @@ def _window_inputs(card, gh, gw, k, n, seed, bases="random"):
 
 
 # The largest square grid whose K=5 block-diagonal reduction fits in one
-# block's shared memory (ba/window_cuda.reduction_smem_bytes): the compact
-# layout.  The ring's largest is 48.
+# block's shared memory in one band (ba/window_cuda.reduction_plan): the
+# compact layout.  The ring's largest is 48; larger grids take bands.
 K5_MAX_GRID = 58
 
 
@@ -92,6 +96,11 @@ K5_MAX_GRID = 58
     # single-stage kernel, and K=5 at the largest of all
     (56, 56, 5, 20000, "random"), (128, 128, 2, 20000, "random"),
     (K5_MAX_GRID, K5_MAX_GRID, 5, 20001, "random"),
+    # banded: the K=5 block diagonal at 45x79 (two bands of the ring),
+    # 59x59 (two ring bands) and 107x107 (four compact bands, the largest
+    # square K=5 grid whose tangent fits window_apply_j's block)
+    (45, 79, 5, 50000, "random"), (59, 59, 5, 20001, "random"),
+    (107, 107, 5, 20000, "random"), (45, 79, 5, 20000, "same"),
 ])
 def test_window_kernels_match_plain(card, gh, gw, k, n, bases):
     j_win, base, tangent, ws, w = _window_inputs(card, gh, gw, k, n, seed=k,
@@ -268,13 +277,44 @@ def test_window_apply_jtw_compact_layout(card):
                                            ("window_block_diag",
                                             lambda k: k * (k + 1) // 2)])
 def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot):
-    """The Python reckoning equals the library's own, in both layouts."""
+    """The Python reckoning equals the library's own, in both layouts and
+    with bands: shared memory and rows per band."""
     entry = getattr(_cuda.lib(), f"cct_{name}_smem_bytes")
+    rows = getattr(_cuda.lib(), f"cct_{name}_band_rows")
     for k in wc.SUPPORTED_K:
         for gh, gw in ((16, 16), (45, 79), (48, 48), (56, 56), (58, 58),
-                       (84, 84), (102, 102), (127, 127), (128, 128), (160, 160)):
+                       (59, 59), (84, 84), (102, 102), (127, 127), (128, 128),
+                       (160, 160), (10, 1000), (400, 400)):
             assert entry(k, gh, gw) == wc.reduction_smem_bytes(
                 gh, gw, k, per_knot(k)), (k, gh, gw)
+            assert rows(k, gh, gw) == wc.reduction_plan(
+                gh, gw, k, per_knot(k))[1], (k, gh, gw)
+    # one grid row wider than fits one block: no band
+    for k in wc.SUPPORTED_K:
+        widest = (_cuda.MAX_SMEM_BYTES // 4 - 32 * k * 36 - 128 - 1) \
+            // (1 + per_knot(k))
+        assert rows(k, 2, widest) == 1 and rows(k, 2, widest + 1) == 0
+
+
+@pytest.mark.parametrize("gh,gw,k,band_rows", [
+    (16, 16, 2, 5), (16, 16, 2, 1), (16, 16, 5, 7), (21, 28, 5, 4),
+    (45, 79, 5, 9)])
+def test_narrower_bands_are_bit_identical(card, gh, gw, k, band_rows):
+    """Every knot's sum runs over the same tiles in the same order whatever
+    the band height: narrower bands than the plan's (here in the plan's
+    layout) give bit-identical results, the untiled kernel included."""
+    j_win, base, _, ws, w = _window_inputs(card, gh, gw, k, 30001, seed=11)
+    for per_knot, call in ((k, lambda **kw: wc.window_apply_jtw(
+            j_win, base, ws, gh, gw, k, **kw)),
+            (k * (k + 1) // 2, lambda **kw: wc.window_block_diag(
+                j_win, base, w, gh, gw, k, **kw))):
+        rows, _ = wc.reduction_bands(gh, gw, k, per_knot)
+        assert band_rows < rows
+        assert wc.reduction_plan(gh, gw, k, per_knot)[0] == (
+            wc.RING if wc._layout_smem_bytes(band_rows, gw, k, per_knot,
+                                             wc.RING)
+            <= _cuda.MAX_SMEM_BYTES else wc.COMPACT)
+        assert torch.equal(call(), call(band_rows=band_rows))
 
 
 def test_project_smem_bytes_match_the_kernels(card):
@@ -323,12 +363,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                            torch.tensor([[40.0, 40.0]], device=card), (1, 1),
                            (79, 79), (1.0, 1.0), 4, 1e-10)
     assert dict(_cuda.launches) == before
-    # one grid row and column more than the K=5 block diagonal takes
-    g = K5_MAX_GRID + 1
-    j5, b5, _, _, w5 = _window_inputs(card, g, g, 5, 64, seed=0)
+    # a grid whose single row of K=5 blocks does not fit one block
+    gh, gw = 2, 3264
+    j5, b5, _, _, w5 = _window_inputs(card, gh, gw, 5, 64, seed=0)
     before = _cuda.launches["window_block_diag"]
     with pytest.raises(ValueError, match="shared memory"):
-        wc.window_block_diag(j5, b5, w5, g, g, 5)
+        wc.window_block_diag(j5, b5, w5, gh, gw, 5)
+    with pytest.raises(ValueError, match="band_rows"):
+        wc.window_block_diag(j5, b5, w5, 16, 16, 5, band_rows=17)
     assert _cuda.launches["window_block_diag"] == before
 
 
@@ -362,3 +404,38 @@ def test_lm_step_through_kernels_matches_plain(card, monkeypatch):
     _, info = lm_pcg.optimize(state, None, None, cached, data=data)
     hist = info["history"]
     assert hist[0]["accepted"] and hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]
+
+
+def test_noncentral_lm_step_through_kernels_matches_plain(card, monkeypatch):
+    """One NoncentralGeneric LM step (K=5 window kernels; the projection is
+    plain PyTorch) against the same step through the plain window
+    versions, on the card; then a short run in both solver modes that use
+    the kernels lowers the paired cost.  The step takes the λ of a first LM
+    step (from the diagonal): at λ = 1e-2 the system is nearly undamped
+    along the origin grid's ill-conditioned directions, where float32
+    rounding in the window sums moves the new cost by about 1e-3."""
+    state, data, _ = problems.make_noncentral_bench_problem(
+        n_points=128, n_poses=16, device=card)
+    options = lm_pcg.BAOptions(max_pcg_iterations=12, proj_iterations=6)
+    warm = tuple(s.pixel for s in data)
+    lam = torch.tensor(-1.0, dtype=torch.float32, device=card)
+    _cuda.reset_launches()
+    out_k = lm_pcg.lm_step(state, warm, lam, data, options)
+    launched = dict(_cuda.launches)
+    for name in ("window_apply_j", "window_apply_jtw", "window_block_diag"):
+        assert launched.get(name, 0) > 0, name
+    for name in ("window_apply_j", "window_apply_jtw", "window_block_diag"):
+        monkeypatch.setattr(wc, name, getattr(wc, name + "_plain"))
+    out_p = lm_pcg.lm_step(state, warm, lam, data, options)
+    assert dict(_cuda.launches) == launched
+    cost_k, cost_p = float(out_k[5]), float(out_p[5])
+    assert abs(cost_k - cost_p) <= STEP_REL * abs(cost_p)
+    dp = (out_k[0].points - out_p[0].points).abs().max()
+    assert float(dp) <= STEP_REL * float(out_p[0].points.abs().max())
+    monkeypatch.undo()
+    for solver in ("schur", "pcg"):
+        run = dataclasses.replace(options, max_lm_iterations=2, solver=solver)
+        _, info = lm_pcg.optimize(state, None, None, run, data=data)
+        hist = info["history"]
+        assert hist[0]["accepted"]
+        assert hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]

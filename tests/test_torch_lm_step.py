@@ -17,8 +17,9 @@ relative (both run float64; only summation orders differ, and the
 observed gap is ~1e-15).
 
 It also checks the port's benchmark problem against ``bench.py``'s, the
-observation-table helpers, the options this slice refuses, and that entry
-points never drop silently to the CPU.
+observation-table helpers, the options the port refuses and those it
+took on after the first slice, and that entry points never drop silently
+to the CPU.
 """
 
 import dataclasses
@@ -259,12 +260,7 @@ def test_observation_tables_match_reference():
         same(tds.to_grid_layout(a, m, p), jds.to_grid_layout(b, m, p))
 
 
-@pytest.mark.parametrize("change", [
-    dict(solver="auto"), dict(solver="pcg"), dict(solver="schur_direct"),
-    dict(solver="schur_direct_points"), dict(cg_jacobian_dtype="bfloat16"),
-    dict(block_chunk=1024), dict(debug_verify=True),
-    dict(profile_dir="trace"),
-])
+@pytest.mark.parametrize("change", [dict(cg_jacobian_dtype="bfloat16")])
 def test_unported_options_raise(problem, change):
     state, data = problem
     ts, td = _port(state, data)
@@ -275,16 +271,56 @@ def test_unported_options_raise(problem, change):
         T.make_lm_step(options)
 
 
-def test_frozen_eliminated_group_and_other_models_raise(problem):
+@pytest.mark.parametrize("change", [
+    dict(solver="auto"), dict(solver="pcg"), dict(solver="schur_direct"),
+    dict(solver="schur_direct_points"), dict(block_chunk=256),
+    dict(debug_verify=True), dict(profile_dir="trace"),
+])
+def test_options_ported_since_the_first_slice_run(problem, change, tmp_path):
+    """The options that raised in the first slice now run: one step lowers
+    the paired cost (tests/test_torch_solvers.py holds each against the JAX
+    package)."""
     state, data = problem
     ts, td = _port(state, data)
-    options = T.BAOptions(freeze=("points",), max_lm_iterations=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.optimize(ts, None, None, options, data=td)
+    if "profile_dir" in change:
+        change = dict(profile_dir=str(tmp_path / "trace"))
+    options = T.BAOptions(max_lm_iterations=1, max_pcg_iterations=20,
+                          proj_iterations=8, **change)
+    _, info = T.optimize(ts, None, None, options, data=td)
+    (h,) = info["history"]
+    assert h["accepted"] and h["paired_new_cost"] < h["paired_cost"]
+    direct = options.solver in ("auto", "schur_direct", "schur_direct_points")
+    assert (h["pcg_iterations"] == 0) == direct
+    assert info["report"].as_dict()["iterations"] == 1
+    if "profile_dir" in change:
+        assert (tmp_path / "trace" / "lm_trace.json").exists()
+
+
+def test_frozen_eliminated_group_and_other_models_raise(problem):
+    """Freezing the eliminated group runs the full-system PCG (as the JAX
+    package does); only the parametric models still raise."""
+    state, data = problem
+    ts, td = _port(state, data)
+    runs = []
+    for solver in ("schur", "pcg"):
+        options = T.BAOptions(freeze=("points",), max_lm_iterations=1,
+                              solver=solver)
+        runs.append(T.optimize(ts, None, None, options, data=td))
+    assert runs[0][1]["history"] == runs[1][1]["history"]
+    assert runs[0][1]["history"][0]["pcg_iterations"] > 0
+    assert torch.equal(runs[0][0].points, ts.points)
     assert protocol.is_grid_model(ts.intrinsics[0])
     assert not protocol.is_grid_model(object())
+    from camera_calibration_tpu.models import parametric
+
+    pinhole = parametric.CentralOpenCVModel(
+        params=jnp.zeros(12), width=64, height=48)
+    for model in (object(), pinhole):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            protocol.intrinsics_tangent_zero(model)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        protocol.intrinsics_tangent_zero(object())
+        T.optimize(dataclasses.replace(ts, intrinsics=(pinhole,)), None,
+                   None, T.BAOptions(max_lm_iterations=1), data=td)
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch,

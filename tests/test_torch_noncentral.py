@@ -1,0 +1,295 @@
+"""Port parity: the NoncentralGeneric model and its bundle adjustment.
+
+The problem follows the JAX package's own noncentral BA recipe
+(``tests/test_ba.py:138-210``) on ``__graft_entry__._make_problem`` (64×48
+image, 7×7 grid, 10 poses of 50 points in grid layout): a smooth
+line-origin field, pixels regenerated through the noncentral projection,
+and the state perturbed (poses, points and both grids).  Everything is
+float64 on the CPU; the JAX functions run jitted on their XLA path.
+
+Checked against the JAX package: the model functions (projection from the
+image center and warm-started, unprojection, the implicit-function
+sensitivities ``pix_wrt_x`` and ``j_win``), ``segment_blocks`` and
+``segment_cost``, ``scale_state``, the protocol's tangent and retraction,
+one LM step in both Schur solvers and both step forms, and ``optimize``
+histories.  Tolerance 1e-9 relative (the observed gap is ~1e-15); ``accept``
+and the CG iteration counts identical.  Also: the ``convert`` round trip and
+the port's noncentral bench problem at a small size.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+import ba_harness
+from camera_calibration_torch import convert, problems
+from camera_calibration_torch.ba import lm_pcg as T
+from camera_calibration_torch.ba import residuals as tres
+from camera_calibration_torch.ba import state as tstate
+from camera_calibration_torch.models import noncentral_generic as tncg
+from camera_calibration_torch.models import protocol as tprot
+from camera_calibration_tpu.ba import lm_pcg as J
+from camera_calibration_tpu.ba import residuals as jres
+from camera_calibration_tpu.ba import state as jstate
+from camera_calibration_tpu.models import noncentral_generic as jncg
+from camera_calibration_tpu.models import protocol as jprot
+from camera_calibration_tpu.models.base import replace as jreplace
+from camera_calibration_tpu.ops import manifolds as jman
+
+REL = dict(rtol=1e-9, atol=1e-12)
+STATE_TOL = dict(rtol=1e-9, atol=1e-10)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """(JAX ground-truth state, JAX perturbed state, JAX tables, the port's
+    perturbed state and tables)."""
+    state_gt, data = graft._make_problem(dtype=jnp.float64, n_points=50,
+                                         n_poses=10)
+    seg = data[0]
+    central = state_gt.intrinsics[0]
+    gh, gw = central.grid.shape[:2]
+    yy, xx = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    origins = np.stack([0.002 * np.sin(xx / 2.0), 0.002 * np.cos(yy / 2.0),
+                        np.zeros_like(xx, float)], -1)
+    model = jreplace(jncg.from_central(central),
+                     point_grid=jnp.asarray(origins))
+    state_gt = dataclasses.replace(state_gt, intrinsics=(model,))
+    x_cam, _ = jstate.transform_to_camera(
+        state_gt, seg.imageset, seg.camera, state_gt.points[seg.point])
+    px, _, valid = jax.jit(lambda x: jncg.project_points(
+        model, x, max_iterations=80))(x_cam)
+    data = (dataclasses.replace(seg, pixel=px, valid=seg.valid & valid),)
+    state0 = ba_harness.perturb_state(state_gt, seed=7, pose_rot=0.005,
+                                      pose_t=0.005, point_sigma=0.002,
+                                      knot_sigma=0.0)
+    rng = np.random.default_rng(8)
+    m0 = state0.intrinsics[0]
+    m0 = jreplace(
+        m0,
+        direction_grid=jman.retract_direction(
+            m0.direction_grid, jnp.asarray(rng.normal(0, 5e-4, (gh, gw, 2)))),
+        point_grid=m0.point_grid + jnp.asarray(rng.normal(0, 5e-4,
+                                                          (gh, gw, 3))))
+    state0 = dataclasses.replace(state0, intrinsics=(m0,))
+    assert data[0].grid_shape == (10, 50)
+    ts = convert.ba_state(state0, device="cpu")
+    td = tuple(convert.observation_table(s, device="cpu") for s in data)
+    return state_gt, state0, data, ts, td
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               **(tol or REL))
+
+
+def _assert_state(ts, js):
+    for name in ("rig_q_global", "rig_t_global", "cam_q_rig", "cam_t_rig",
+                 "points"):
+        _close(getattr(ts, name), getattr(js, name), **STATE_TOL)
+    for tm, jm in zip(ts.intrinsics, js.intrinsics):
+        # Both grids to 1e-9 of the scene's unit scale (unit directions;
+        # origins in meters, ~2 m from the points).  The origin field is
+        # nearly degenerate with the camera translation, so the CG's
+        # rounding shows there first (~3e-10 after two steps).
+        for name in ("direction_grid", "point_grid"):
+            _close(getattr(tm, name), getattr(jm, name), rtol=0, atol=1e-9)
+
+
+def test_model_functions(problem):
+    state_gt, _, data, _, _ = problem
+    jm = state_gt.intrinsics[0]
+    tm = convert.camera_model(jm, device="cpu")
+    assert isinstance(tm, tncg.NoncentralGenericModel)
+    assert (tm.grid_height, tm.grid_width) == (7, 7) and not tm.is_central
+    x_cam, _ = jstate.transform_to_camera(
+        state_gt, jnp.repeat(jnp.arange(10), 50), jnp.zeros(500, jnp.int32),
+        jnp.tile(state_gt.points, (10, 1)))
+    rng = np.random.default_rng(1)
+    warm = np.asarray(data[0].pixel) + rng.normal(0, 1.0, (500, 2))
+    for init, iters in ((None, 40), (warm, 6)):
+        jinit = None if init is None else jnp.asarray(init)
+        px, g, valid = jax.jit(lambda x, i: jncg.project_points(
+            jm, x, init_xy=i, max_iterations=iters))(x_cam, jinit)
+        tpx, tg, tvalid = tncg.project_points(
+            tm, _t(x_cam), init_xy=None if init is None else _t(init),
+            max_iterations=iters)
+        _close(tpx, px, rtol=1e-9, atol=1e-9)
+        _close(tg, g, rtol=1e-9, atol=1e-10)
+        np.testing.assert_array_equal(tvalid.numpy(), np.asarray(valid))
+        assert int(tvalid.sum()) > 400
+    blocks = jax.jit(lambda g_, x: jncg.projection_blocks(jm, g_, x))(g, x_cam)
+    tblocks = tncg.projection_blocks(tm, _t(g), _t(x_cam))
+    np.testing.assert_array_equal(tblocks["win_flat"].numpy(),
+                                  np.asarray(blocks["win_flat"]))
+    for key in ("pix_wrt_x", "j_win"):  # every window lies inside the grid
+        assert tblocks[key].shape == blocks[key].shape
+        scale = float(np.abs(np.asarray(blocks[key])).max())
+        _close(tblocks[key], blocks[key], rtol=0, atol=1e-12 * scale)
+    pix = jnp.asarray(rng.uniform([-5, -5], [70, 55], (300, 2)))
+    d, o, inside = jncg.unproject(jm, pix)
+    td, to, tinside = tncg.unproject(tm, _t(pix))
+    _close(td, d)
+    _close(to, o, rtol=1e-9, atol=1e-15)
+    np.testing.assert_array_equal(tinside.numpy(), np.asarray(inside))
+    tdir, tvalid = tprot.unproject(tm, _t(pix))
+    _close(tdir, jprot.unproject(jm, pix)[0])
+    # from a central model: the same directions, zero origins
+    central = convert.central_generic_model(
+        {"grid": np.asarray(jm.direction_grid), "width": 64, "height": 48},
+        device="cpu")
+    nc = tncg.from_central(central)
+    assert torch.equal(nc.direction_grid, central.grid)
+    assert not nc.point_grid.any() and nc.width == 64
+
+
+def test_segment_blocks_and_cost(problem):
+    _, state0, data, ts, td = problem
+    seg, tseg = data[0], td[0]
+    model = state0.intrinsics[0]
+    warm = seg.pixel
+    kw = dict(huber_px=1.0, max_proj_iterations=6, grid_shape=seg.grid_shape)
+
+    def jax_fn(s, w):
+        b, nw = jres.segment_blocks(model, s, seg.imageset, seg.camera,
+                                    seg.point, seg.pixel, seg.valid, w, **kw)
+        c = jres.segment_cost(model, s, seg.imageset, seg.camera, seg.point,
+                              seg.pixel, seg.valid, w, **kw)
+        return b, nw, c
+
+    bj, wj, cj = jax.jit(jax_fn)(state0, warm)
+    bt, wt = tres.segment_blocks(ts.intrinsics[0], ts, tseg.imageset,
+                                 tseg.camera, tseg.point, tseg.pixel,
+                                 tseg.valid, tseg.pixel, **kw)
+    ct = tres.segment_cost(ts.intrinsics[0], ts, tseg.imageset, tseg.camera,
+                           tseg.point, tseg.pixel, tseg.valid, tseg.pixel,
+                           **kw)
+    valid = np.array(bj.valid)
+    np.testing.assert_array_equal(bt.valid.numpy(), valid)
+    assert valid.sum() > 400 and bt.intr.k_tangent == 5
+    for name in ("r", "j_rig", "j_cam", "j_point", "weight", "cost"):
+        _close(getattr(bt, name), getattr(bj, name), rtol=1e-9, atol=1e-12)
+    assert bt.intr.j_win.shape == (160, 500)
+    assert bt.intr.j_win.is_contiguous()
+    assert bt.intr.base_xy.dtype == torch.int32
+    np.testing.assert_array_equal(bt.intr.base_xy.numpy(),
+                                  np.asarray(bj.intr.base_xy))
+    scale = float(np.abs(np.asarray(bj.intr.j_win)).max())
+    _close(bt.intr.j_win, bj.intr.j_win, rtol=0, atol=1e-12 * scale)
+    _close(wt, wj, rtol=0, atol=1e-9)
+    for a, b in zip(ct, cj):
+        _close(a, b, rtol=1e-9, atol=1e-12)
+
+
+def test_scale_state_protocol_and_convert(problem):
+    _, state0, _, ts, _ = problem
+    _assert_state(tstate.scale_state(ts, 2.5), jstate.scale_state(state0, 2.5))
+    jm, tm = state0.intrinsics[0], ts.intrinsics[0]
+    zero = tprot.intrinsics_tangent_zero(tm)
+    assert zero.shape == jprot.intrinsics_tangent_zero(jm).shape == (7, 7, 5)
+    assert tprot.is_grid_model(tm)
+    tangent = np.random.default_rng(2).normal(0, 1e-3, (7, 7, 5))
+    for scale in (1.0, -0.5):
+        got = tprot.intrinsics_retract(tm, _t(tangent), scale)
+        want = jprot.intrinsics_retract(jm, jnp.asarray(tangent), scale)
+        _close(got.direction_grid, want.direction_grid)
+        _close(got.point_grid, want.point_grid)
+    # the gauge mask covers 5 values per knot
+    mask = tstate.fix_gauge_mask(ts, ("intrinsics",))
+    assert mask.intr[0].shape == (7, 7, 5) and not mask.intr[0].any()
+    # numpy out and back in
+    back = convert.state_to_numpy(ts)
+    intr = back["intrinsics"][0]
+    assert set(intr) == {"direction_grid", "point_grid"}
+    again = convert.ba_state(
+        dict(back, intrinsics=[dict(intr, width=64, height=48,
+                                    calibration_max_x=63,
+                                    calibration_max_y=47)]),
+        device="cpu")
+    assert torch.equal(again.intrinsics[0].point_grid, tm.point_grid)
+    assert torch.equal(again.points, ts.points)
+    assert again.intrinsics[0] == dataclasses.replace(
+        tm, direction_grid=again.intrinsics[0].direction_grid,
+        point_grid=again.intrinsics[0].point_grid)
+
+
+def _options(solver, **kw):
+    kw = dict(dict(max_pcg_iterations=20, proj_iterations=6, solver=solver),
+              **kw)
+    return J.BAOptions(**kw), T.BAOptions(**kw)
+
+
+@pytest.mark.parametrize("solver", ["schur", "schur_poses"])
+@pytest.mark.parametrize("cached", [False, True])
+def test_lm_step(problem, solver, cached):
+    _, state0, data, ts, td = problem
+    oj, ot = _options(solver)
+    warm_j = tuple(s.pixel for s in data)
+    warm_t = tuple(s.pixel for s in td)
+    lam_j = jnp.asarray(-1.0, jnp.float64)
+    lam_t = torch.tensor(-1.0, dtype=torch.float64)
+    if cached:
+        sj, wj, lj, outs_j = J.make_lm_scan(oj, 2)(state0, warm_j, lam_j, data)
+        st, wt, lt, outs_t = T.make_lm_scan(ot, 2)(ts, warm_t, lam_t, td)
+        outs_j = [np.asarray(o) for o in outs_j]
+        assert list(outs_t[0]) == list(outs_j[0])
+        assert list(outs_t[3]) == [int(i) for i in outs_j[3]]
+        for a, b in zip(outs_t[1:], outs_j[1:]):
+            _close(a, b)
+        assert all(outs_t[0])
+    else:
+        ref = J.make_lm_step(oj)(state0, warm_j, lam_j, data)
+        got = T.make_lm_step(ot)(ts, warm_t, lam_t, td)
+        sj, wj, lj, st, wt, lt = ref[0], ref[1], ref[2], got[0], got[1], got[2]
+        assert got[3] == bool(ref[3]) and got[3]
+        assert got[6] == int(ref[6]) > 0
+        for i in (4, 5, 7, 8):
+            _close(float(got[i]), float(ref[i]))
+    _assert_state(st, sj)
+    _close(float(lt), float(lj))
+    for a, b in zip(wt, wj):
+        _close(a, b, rtol=0, atol=1e-8)
+
+
+def test_optimize_history(problem):
+    _, state0, data, ts, td = problem
+    oj, ot = _options("schur", max_lm_iterations=4)
+    sj, info_j = J.optimize(state0, None, None, oj, data=data)
+    st, info_t = T.optimize(ts, None, None, ot, data=td)
+    hj, ht = info_j["history"], info_t["history"]
+    assert len(ht) == len(hj) == 4
+    for a, b in zip(ht, hj):
+        for key in ("iteration", "accepted", "pcg_iterations"):
+            assert a[key] == b[key], key
+        for key in ("cost", "new_cost", "paired_cost", "paired_new_cost",
+                    "lambda"):
+            _close(a[key], b[key])
+    assert ht[-1]["new_cost"] < 0.1 * ht[0]["cost"]
+    _assert_state(st, sj)
+
+
+def test_noncentral_bench_problem_small():
+    """The port's noncentral bench problem at 16 poses × 128 points: a
+    noncentral state with the origin field, most rows valid, and an LM run
+    that lowers the paired cost through the K=5 window path."""
+    state, data, meta = problems.make_noncentral_bench_problem(
+        n_points=128, n_poses=16, device="cpu")
+    model = state.intrinsics[0]
+    assert isinstance(model, tncg.NoncentralGenericModel)
+    assert model.direction_grid.dtype == torch.float32
+    assert float(model.point_grid.abs().max()) > 1e-3
+    assert data[0].grid_shape == (16, 128) and meta["n_obs"] > 1500
+    options = T.BAOptions(max_lm_iterations=2, max_pcg_iterations=10)
+    _, info = T.optimize(state, None, None, options, data=data)
+    hist = info["history"]
+    assert hist[0]["accepted"]
+    assert hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]

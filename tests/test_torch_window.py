@@ -160,14 +160,84 @@ def test_reduction_smem_bytes(gh, gw, k, per_knot, layout, formula, total):
     _cuda.check_smem(total, "window_block_diag")
 
 
-@pytest.mark.parametrize("gh,gw,k,per_knot", [
-    (59, 59, 5, 15), (136, 136, 2, 3), (103, 103, 5, 5), (167, 167, 2, 2)])
+# (gh, gw, k, per_knot): grids where one grid row does not fit one block
+# (compact layout, one row: 4 * (32K * 36 + 128 + (1 + gw) + gw * per_knot)
+# bytes), the only grids the banded reduction refuses.
+TOO_WIDE = [(2, 3264, 5, 15), (1, 3264, 5, 15), (45, 13920, 2, 3),
+            (3, 8704, 5, 5)]
+
+
+@pytest.mark.parametrize("gh,gw,k,per_knot", TOO_WIDE)
 def test_reduction_past_the_block_limit_is_refused(gh, gw, k, per_knot):
-    nbytes = wc.reduction_smem_bytes(gh, gw, k, per_knot)
-    assert nbytes > _cuda.MAX_SMEM_BYTES
+    row = 4 * (32 * k * 36 + 128 + (1 + gw) + gw * per_knot)
+    assert row > _cuda.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="shared memory"):
-        _cuda.check_smem(nbytes, "window_block_diag")
-    _cuda.check_smem(_cuda.MAX_SMEM_BYTES, "window_block_diag")
+        wc.reduction_plan(gh, gw, k, per_knot)
+    # one column fewer fits, in bands of one row where it must
+    layout, rows = wc.reduction_plan(gh, gw - 1, k, per_knot)
+    assert wc.reduction_smem_bytes(gh, gw - 1, k, per_knot) \
+        <= _cuda.MAX_SMEM_BYTES
+
+
+# Bands of the reduction's partial pass, counted by hand: (gh, gw, k,
+# per_knot, layout, band rows, bands, bytes of one block).
+BAND_CASES = [
+    # the 1080p default grid, K=5 block diagonal: the whole grid needs
+    # 4 * (160 * 36 + 128 + 124 + 3555 * 15) = 237,348 B compact; two bands
+    # of 23 and 22 rows fit the ring
+    (45, 79, 5, 15, wc.RING, 23, 2,
+     4 * (2 * (160 * 68 + 256) + (23 + 79) * 2 + 23 * 79 * 15)),
+    # ... and its JtW still takes one band
+    (45, 79, 5, 5, wc.RING, 45, 1,
+     4 * (2 * (160 * 68 + 256) + (45 + 79) * 2 + 3555 * 5)),
+    # one row past the largest square grid of one band
+    (59, 59, 5, 15, wc.RING, 30, 2,
+     4 * (2 * (160 * 68 + 256) + (30 + 59) * 2 + 30 * 59 * 15)),
+    (84, 84, 5, 15, wc.RING, 28, 3,
+     4 * (2 * (160 * 68 + 256) + (28 + 84) * 2 + 28 * 84 * 15)),
+    # large grids: compact bands
+    (160, 160, 5, 15, wc.COMPACT, 20, 8,
+     4 * (160 * 36 + 128 + (20 + 160) + 20 * 160 * 15)),
+    (400, 400, 2, 3, wc.COMPACT, 45, 9,
+     4 * (64 * 36 + 128 + (45 + 400) + 45 * 400 * 3)),
+    # bands that do not divide the rows evenly: 10 rows in 4 bands of 3
+    (10, 1000, 5, 15, wc.COMPACT, 3, 4,
+     4 * (160 * 36 + 128 + (3 + 1000) + 3 * 1000 * 15)),
+]
+
+
+@pytest.mark.parametrize("gh,gw,k,per_knot,layout,rows,bands,nbytes",
+                         BAND_CASES)
+def test_reduction_bands(gh, gw, k, per_knot, layout, rows, bands, nbytes):
+    assert wc.reduction_plan(gh, gw, k, per_knot) == (layout, rows)
+    assert wc.reduction_bands(gh, gw, k, per_knot) == (rows, bands)
+    assert wc.reduction_smem_bytes(gh, gw, k, per_knot) == nbytes
+    _cuda.check_smem(nbytes, "window_block_diag")
+    # the fewest bands: one band fewer does not fit
+    if bands > 1:
+        wider = -(-gh // (bands - 1))
+        assert wc._layout_smem_bytes(wider, gw, k, per_knot, wc.COMPACT) \
+            > _cuda.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("k,per_knot", [(2, 2), (2, 3), (5, 5), (5, 15)])
+def test_reduction_takes_every_grid_with_a_row_that_fits(k, per_knot):
+    """Every square grid up to 600x600, and the widest single rows, get a
+    plan whose bands cover the grid and whose block fits; a grid that fits
+    one block keeps one band."""
+    for g in range(4, 601, 7):
+        layout, rows = wc.reduction_plan(g, g, k, per_knot)
+        bands = -(-g // rows)
+        assert bands * rows >= g > (bands - 1) * rows
+        assert wc.reduction_smem_bytes(g, g, k, per_knot) \
+            <= _cuda.MAX_SMEM_BYTES
+        whole = wc._layout_smem_bytes(g, g, k, per_knot, wc.COMPACT)
+        assert (rows == g) == (whole <= _cuda.MAX_SMEM_BYTES)
+    widest = (_cuda.MAX_SMEM_BYTES // 4 - 32 * k * 36 - 128 - 1) \
+        // (1 + per_knot)
+    assert wc.reduction_plan(7, widest, k, per_knot)[1] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        wc.reduction_plan(7, widest + 1, k, per_knot)
 
 
 @pytest.mark.parametrize("k,per_knot", [(2, 2), (2, 3), (5, 5), (5, 15)])
