@@ -54,31 +54,33 @@ SIGNATURES = {
     # stream
     "cct_project_blocks": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                            _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
-    # jwin, base, base_sn, base_sc, tangent, n, gh, gw, k, out, stream
-    "cct_window_apply_j": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P],
-    # jwin, base, base_sn, base_sc, ws, n, gh, gw, k, band_rows, partial,
-    # nblocks, out, stream
-    "cct_window_apply_jtw": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+    # jwin, base, base_sn, base_sc, tangent, n, gh, gw, k, elem_bytes, out,
+    # stream (elem_bytes: 4 for a float32 j_win, 2 for a bfloat16 one)
+    "cct_window_apply_j": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # jwin, base, base_sn, base_sc, ws, n, gh, gw, k, elem_bytes, band_rows,
+    # partial, nblocks, out, stream
+    "cct_window_apply_jtw": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                              _I, _P, _P],
-    # jwin, base, base_sn, base_sc, w, n, gh, gw, k, band_rows, partial,
-    # nblocks, out, stream
-    "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
-                              _I, _P, _P],
+    # jwin, base, base_sn, base_sc, w, n, gh, gw, k, elem_bytes (4 only),
+    # band_rows, partial, nblocks, out, stream
+    "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _I, _P, _P],
     # blocks (0: cct_project, 1: cct_project_blocks), gh, gw: the kernel's
     # blocks that fit on one SM, its threads per block, one block's shared
     # memory
     "cct_project_blocks_per_sm": [_I, _I, _I],
     "cct_project_threads": [_I, _I, _I],
     "cct_project_smem_bytes": [_I, _I, _I],
-    # k, gh, gw: blocks of the reduction's partial pass that fit on one SM
-    "cct_window_apply_jtw_blocks_per_sm": [_I, _I, _I],
-    "cct_window_block_diag_blocks_per_sm": [_I, _I, _I],
-    # k, gh, gw: shared memory of one block of the partial pass
-    "cct_window_apply_jtw_smem_bytes": [_I, _I, _I],
-    "cct_window_block_diag_smem_bytes": [_I, _I, _I],
-    # k, gh, gw: grid rows per band of the partial pass
-    "cct_window_apply_jtw_band_rows": [_I, _I, _I],
-    "cct_window_block_diag_band_rows": [_I, _I, _I],
+    # k, gh, gw, elem_bytes: blocks of the reduction's partial pass that
+    # fit on one SM
+    "cct_window_apply_jtw_blocks_per_sm": [_I, _I, _I, _I],
+    "cct_window_block_diag_blocks_per_sm": [_I, _I, _I, _I],
+    # k, gh, gw, elem_bytes: shared memory of one block of the partial pass
+    "cct_window_apply_jtw_smem_bytes": [_I, _I, _I, _I],
+    "cct_window_block_diag_smem_bytes": [_I, _I, _I, _I],
+    # k, gh, gw, elem_bytes: grid rows per band of the partial pass
+    "cct_window_apply_jtw_band_rows": [_I, _I, _I, _I],
+    "cct_window_block_diag_band_rows": [_I, _I, _I, _I],
 }
 
 # Entry points that return another type than an int status or count.
@@ -181,14 +183,15 @@ def lib():
     return _state["lib"]
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry ``cct_<name>`` on the current stream; count it and raise
-    on a non-zero ``cudaError_t``."""
+def launch(name: str, *args, counted: str | None = None) -> None:
+    """Call C entry ``cct_<name>`` on the current stream; count it (under
+    ``counted``, the kernel variant's name, where given) and raise on a
+    non-zero ``cudaError_t``."""
     status = getattr(lib(), "cct_" + name)(
         *args, torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
-    launches[name] += 1
+    launches[counted or name] += 1
 
 
 def check_smem(nbytes: int, name: str) -> None:
@@ -199,14 +202,15 @@ def check_smem(nbytes: int, name: str) -> None:
         )
 
 
-def require_cuda_f32(name: str, **tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor."""
+def require_cuda_f32(name: str, dtypes=(torch.float32,), **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of one of
+    ``dtypes`` (float32 unless a kernel also reads another type)."""
     for key, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {key} is not on the card")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32 on the card, "
-                            f"got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {key} must be one of {dtypes} on the "
+                            f"card, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 

@@ -11,10 +11,11 @@
   ``schur_direct_points``: points).  ``auto`` picks ``schur_direct`` while
   the reduced system is small, ``schur`` beyond.  A Schur mode whose
   eliminated group is frozen falls back to ``pcg``.
-- The intrinsics legs of every matvec and the block-Jacobi blocks of the
-  intrinsics go through the window kernels (``ba/window_cuda.py``); the
-  CentralGeneric projections go through the projection kernels
-  (``models/central_generic_cuda.py``).
+- The intrinsics legs of every matvec and the block-Jacobi blocks of a
+  grid model's intrinsics go through the window kernels
+  (``ba/window_cuda.py``); the CentralGeneric projections go through the
+  projection kernels (``models/central_generic_cuda.py``).  A parametric
+  model's dense (2, P) blocks are contracted by einsums.
 - An LM step is judged on the observations valid in both states (paired
   cost comparison); λ is halved on accept and doubled on reject.
 - Projections warm-start from the previous converged pixels.
@@ -22,8 +23,11 @@
 Both step forms are ported: the two-pass step (blocks pass + cost-only
 pass, :func:`lm_step` without ``blocks``) and the cached-blocks step (the
 test-state blocks pass doubles as the accept test and the next iteration's
-cache, :func:`make_lm_scan`).  ``cg_jacobian_dtype="bfloat16"`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+cache, :func:`make_lm_scan`).  With ``cg_jacobian_dtype="bfloat16"`` the
+CG matvecs read bfloat16 copies of the Jacobian blocks, made once per
+solve (:func:`_cg_cast_blocks`); the gradient, the right-hand side, the
+back-substitution, the preconditioner and the accept test keep the
+float32 blocks.
 """
 
 from __future__ import annotations
@@ -95,6 +99,7 @@ class BAOptions:
     profile_dir: str | None = None
     # Warm-start each PCG solve from the previous cached-blocks step.
     cg_warm_start: bool = False
+    # Jacobian-block dtype inside the CG matvecs: "float32" or "bfloat16".
     cg_jacobian_dtype: str = "float32"
     # "halve_double" (accept → λ/2, reject → λ×2) or "gain_ratio"
     # (accept → λ·max(1/3, 1−(2ρ−1)³) with ρ = actual/predicted reduction).
@@ -109,10 +114,9 @@ def check_options(options: BAOptions) -> None:
     """Raise for options this port does not implement or does not know."""
     if options.solver not in SOLVERS:
         raise ValueError(f"unknown solver {options.solver!r}")
-    if options.cg_jacobian_dtype != "float32":
-        raise NotImplementedError(
-            "cg_jacobian_dtype='bfloat16' is not ported yet (ROADMAP.md "
-            "queue 1, item 9)")
+    if options.cg_jacobian_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"unknown cg_jacobian_dtype {options.cg_jacobian_dtype!r}")
     if options.lambda_schedule not in ("halve_double", "gain_ratio"):
         raise ValueError(f"unknown lambda_schedule {options.lambda_schedule!r}")
 
@@ -137,6 +141,9 @@ class OptimizationReport:
 
 
 # --------------------- pose/point legs (grid or flat) ---------------------
+#
+# A Jacobian block may be a bfloat16 copy (the CG matvecs'): each leg takes
+# it to the dtype of the vector it meets (res.as_dtype_of).
 
 
 def _grid_mp(seg, m=None, p=None):
@@ -154,6 +161,7 @@ def _grid_mp(seg, m=None, p=None):
 
 def _jv_imageset(seg, j, arr):
     """einsum('nik,nk->ni', j, arr[seg.imageset]) without the gather."""
+    j = res.as_dtype_of(j, arr)
     gs = _grid_mp(seg, m=arr.shape[0])
     if gs is not None:
         jg = j.reshape(gs + j.shape[1:])
@@ -163,6 +171,7 @@ def _jv_imageset(seg, j, arr):
 
 def _jv_point(seg, j, arr):
     """einsum('nik,nk->ni', j, arr[seg.point]) without the gather."""
+    j = res.as_dtype_of(j, arr)
     gs = _grid_mp(seg, p=arr.shape[0])
     if gs is not None:
         jg = j.reshape(gs + j.shape[1:])
@@ -172,6 +181,7 @@ def _jv_point(seg, j, arr):
 
 def _jtw_imageset(seg, j, ws, m):
     """segment_sum(einsum('nik,ni->nk', j, ws), seg.imageset, m)."""
+    j = res.as_dtype_of(j, ws)
     gs = _grid_mp(seg, m=m)
     if gs is not None:
         jg = j.reshape(gs + j.shape[1:])
@@ -181,6 +191,7 @@ def _jtw_imageset(seg, j, ws, m):
 
 def _jtw_point(seg, j, ws, p):
     """segment_sum(einsum('nik,ni->nk', j, ws), seg.point, p)."""
+    j = res.as_dtype_of(j, ws)
     gs = _grid_mp(seg, p=p)
     if gs is not None:
         jg = j.reshape(gs + j.shape[1:])
@@ -289,10 +300,14 @@ def _cat_blocks(parts):
     def cat(name):
         return torch.cat([getattr(b, name) for b in parts])
 
-    intr = res.GridIntr(
-        j_win=torch.cat([b.intr.j_win for b in parts], dim=1),
-        base_xy=torch.cat([b.intr.base_xy for b in parts]),
-        k_tangent=parts[0].intr.k_tangent)
+    if isinstance(parts[0].intr, res.DenseIntr):
+        intr = res.DenseIntr(
+            j_params=torch.cat([b.intr.j_params for b in parts]))
+    else:
+        intr = res.GridIntr(
+            j_win=torch.cat([b.intr.j_win for b in parts], dim=1),
+            base_xy=torch.cat([b.intr.base_xy for b in parts]),
+            k_tangent=parts[0].intr.k_tangent)
     return res.ObsBlocks(r=cat("r"), j_rig=cat("j_rig"), j_cam=cat("j_cam"),
                          j_point=cat("j_point"), intr=intr,
                          weight=cat("weight"), valid=cat("valid"),
@@ -354,7 +369,9 @@ def _apply_j_subset(data, blocks, tangent: BATangent, *, rig=True, cam=True,
         if rig:
             s = s + _jv_imageset(seg, b.j_rig, tangent.rig)
         if cam:
-            s = s + torch.einsum("nik,k->ni", b.j_cam, tangent.cam[ci])
+            s = s + torch.einsum("nik,k->ni",
+                                 res.as_dtype_of(b.j_cam, tangent.cam),
+                                 tangent.cam[ci])
         if points:
             s = s + _jv_point(seg, b.j_point, tangent.points)
         if intr:
@@ -375,7 +392,8 @@ def _apply_jt_subset(data, blocks, s_list, state: BAState, *, rig=True,
         if rig:
             rig_t = rig_t + _jtw_imageset(seg, b.j_rig, ws, rig_t.shape[0])
         if cam:
-            cam_t = _add_row(cam_t, ci, torch.einsum("nik,ni->k", b.j_cam, ws))
+            cam_t = _add_row(cam_t, ci, torch.einsum(
+                "nik,ni->k", res.as_dtype_of(b.j_cam, ws), ws))
         if points:
             pts_t = pts_t + _jtw_point(seg, b.j_point, ws, pts_t.shape[0])
         if intr:
@@ -394,8 +412,9 @@ def apply_jtw(data, blocks, s_list, state: BAState) -> BATangent:
 
 
 def jtwj_block_diag(data, blocks, state: BAState):
-    """Variable-block diagonal of JᵀWJ: 6×6 rig/cam, 3×3 point and per-knot
-    K×K grid blocks."""
+    """Variable-block diagonal of JᵀWJ: 6×6 rig/cam, 3×3 point, and per
+    camera the per-knot K×K blocks of a grid model or the whole P×P block
+    of a parametric one."""
     dtype, dev = state.points.dtype, state.points.device
     m = state.rig_q_global.shape[0]
     c = state.cam_q_rig.shape[0]
@@ -410,9 +429,13 @@ def jtwj_block_diag(data, blocks, state: BAState):
         rig = rig + _jtwj_diag_imageset(seg, b.j_rig, w, m)
         cam = _add_row(cam, ci, torch.einsum("nij,nik,n->jk", b.j_cam, b.j_cam, w))
         pts = pts + _jtwj_diag_point(seg, b.j_point, w, p_n)
+        bi = b.intr
+        if isinstance(bi, res.DenseIntr):
+            intr.append(torch.einsum("nij,nik,n->jk", bi.j_params,
+                                     bi.j_params, w))
+            continue
         model = state.intrinsics[ci]
         gh, gw = model.grid_height, model.grid_width
-        bi = b.intr
         intr.append(window_cuda.window_block_diag(
             bi.j_win, bi.base_xy, w, gh, gw, bi.k_tangent))
     return rig, cam, pts, tuple(intr)
@@ -429,16 +452,46 @@ def make_block_preconditioner(block_diag, lam, state):
     rig_inv, cam_inv, pts_inv = (_damped_inv(x, lam) for x in block_diag[:3])
     intr_inv = [_damped_inv(x, lam) for x in block_diag[3]]
 
+    def apply_intr(inv, ri):
+        if inv.dim() == 4:  # (gh, gw, K, K) per-knot blocks
+            return torch.einsum("hwjk,hwk->hwj", inv, ri)
+        return inv @ ri  # one (P, P) parametric block
+
     def apply(r: BATangent) -> BATangent:
         return BATangent(
             rig=torch.einsum("mjk,mk->mj", rig_inv, r.rig),
             cam=torch.einsum("cjk,ck->cj", cam_inv, r.cam),
             points=torch.einsum("pjk,pk->pj", pts_inv, r.points),
-            intr=tuple(torch.einsum("hwjk,hwk->hwj", inv, ri)
+            intr=tuple(apply_intr(inv, ri)
                        for inv, ri in zip(intr_inv, r.intr)),
         )
 
     return apply
+
+
+def _cg_cast_blocks(blocks, options):
+    """The blocks the CG matvecs read: with ``cg_jacobian_dtype="bfloat16"``
+    bfloat16 copies of the Jacobian blocks (made once per solve), the
+    residuals, weights and validity as they are; else the blocks
+    themselves."""
+    if options.cg_jacobian_dtype != "bfloat16":
+        return blocks
+
+    def cast(x):
+        return x.to(torch.bfloat16)
+
+    out = []
+    for b in blocks:
+        bi = b.intr
+        if isinstance(bi, res.GridIntr):
+            bi = res.GridIntr(j_win=cast(bi.j_win), base_xy=bi.base_xy,
+                              k_tangent=bi.k_tangent)
+        else:
+            bi = res.DenseIntr(j_params=cast(bi.j_params))
+        out.append(dataclasses.replace(
+            b, j_rig=cast(b.j_rig), j_cam=cast(b.j_cam),
+            j_point=cast(b.j_point), intr=bi))
+    return out
 
 
 def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
@@ -448,7 +501,8 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     eliminate="points" eliminates the 3×3 point blocks (PCG on rig, cameras
     and intrinsics); eliminate="poses" eliminates the 6×6 imageset pose
     blocks (PCG on cameras, points and intrinsics).  The reduced matvec
-    stays matrix-free.  Returns (δ, CG iterations).
+    stays matrix-free and reads :func:`_cg_cast_blocks`; the right-hand side
+    and the back-substitution read ``blocks``.  Returns (δ, CG iterations).
     """
     rig_b, cam_b, pts_b, intr_b = block_diag
     el_points = eliminate == "points"
@@ -478,15 +532,17 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     def apply_elim_block(t_e):
         return torch.einsum("pjk,pk->pj", d_inv, t_e)
 
+    blocks_mv = _cg_cast_blocks(blocks, options)
+
     def matvec_flat(vf):
         v = mask_keep.unravel(vf * mask_keep_flat)
-        u = _apply_j_subset(data, blocks, v, **keep)
-        t_e = get_elim(_apply_jt_subset(data, blocks, u, state, **elim))
+        u = _apply_j_subset(data, blocks_mv, v, **keep)
+        t_e = get_elim(_apply_jt_subset(data, blocks_mv, u, state, **elim))
         u2 = _apply_j_subset(
-            data, blocks, with_elim(zero_tangent(state), apply_elim_block(t_e)),
-            **elim)
+            data, blocks_mv,
+            with_elim(zero_tangent(state), apply_elim_block(t_e)), **elim)
         diff = [a - b_ for a, b_ in zip(u, u2)]
-        out = _apply_jt_subset(data, blocks, diff, state, **keep).ravel()
+        out = _apply_jt_subset(data, blocks_mv, diff, state, **keep).ravel()
         return (out + lam * vf) * mask_keep_flat
 
     def precond_flat(rf):
@@ -611,8 +667,11 @@ def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
         jr = b.j_rig.reshape(mm, pp, 2, 6)
         jc = b.j_cam.reshape(mm, pp, 2, 6)
         jp = b.j_point.reshape(mm, pp, 2, 3)
-        i_off, i_size, (gh, gw, kt) = offs[("intr", ci)]
-        jd = _dense_intr_j(b.intr, gh, gw, kt).reshape(mm, pp, 2, i_size)
+        i_off, i_size, i_shape = offs[("intr", ci)]
+        if isinstance(b.intr, res.DenseIntr):
+            jd = b.intr.j_params.reshape(mm, pp, 2, i_size)
+        else:
+            jd = _dense_intr_j(b.intr, *i_shape).reshape(mm, pp, 2, i_size)
         jdw, jcw = jd * w, jc * w
         co = cam_off + 6 * ci
 
@@ -682,14 +741,17 @@ def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
 def pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
               x0=None):
     """Solve (JᵀWJ + λI) δ = −grad by block-Jacobi PCG on the full system
-    (reference package ``lm_pcg.py:969-992``).  Returns (δ, CG iterations).
+    (reference package ``lm_pcg.py:969-992``); the matvecs read
+    :func:`_cg_cast_blocks`.  Returns (δ, CG iterations).
     """
     mask_flat = mask.ravel()
     precond = make_block_preconditioner(block_diag, lam, state)
+    blocks_mv = _cg_cast_blocks(blocks, options)
 
     def matvec_flat(vf):
         v = mask.unravel(vf * mask_flat)
-        hv = apply_jtw(data, blocks, apply_j(data, blocks, v), state).ravel()
+        hv = apply_jtw(data, blocks_mv, apply_j(data, blocks_mv, v),
+                       state).ravel()
         return (hv + lam * vf) * mask_flat
 
     def precond_flat(rf):

@@ -3,11 +3,14 @@
 For every observation (imageset i, camera c, point p, measured pixel m) the
 residual is ``r = π_c(R_c (R_r x_p + t_r) + t_c) − m`` with a Huber (1 px)
 robust loss.  Jacobian blocks are closed form: the pose and point chains go
-through small cross-product matrices; the intrinsics block of a grid model
-is the sparse 4×4-window knot Jacobian from the implicit-function-theorem
-projection sensitivities (K = 2 per knot for CentralGeneric, from
-``models/central_generic_cuda.py``; K = 5 for NoncentralGeneric, from
-``models/noncentral_generic.py``).
+through small cross-product matrices.  The intrinsics block is
+
+- for a grid model, the sparse 4×4-window knot Jacobian from the
+  implicit-function-theorem projection sensitivities (K = 2 per knot for
+  CentralGeneric, from ``models/central_generic_cuda.py``; K = 5 for
+  NoncentralGeneric, from ``models/noncentral_generic.py``);
+- for a parametric model, the dense (2, P) parameter Jacobian from
+  forward-mode AD of the closed-form projection (``torch.func.jacfwd``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ from camera_calibration_torch.ba.state import (
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import central_generic_cuda as cgc
 from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models import parametric as pm
 from camera_calibration_torch.models import protocol
+from camera_calibration_torch.models.base import replace
 from camera_calibration_torch.ops import losses, manifolds, se3
 
 
@@ -41,6 +46,13 @@ class GridIntr:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseIntr:
+    """Dense intrinsics block of a parametric model."""
+
+    j_params: torch.Tensor  # (n, 2, P)
+
+
+@dataclasses.dataclass(frozen=True)
 class ObsBlocks:
     """Per-observation residuals + Jacobian blocks for one camera segment."""
 
@@ -48,7 +60,7 @@ class ObsBlocks:
     j_rig: torch.Tensor  # (n, 2, 6)
     j_cam: torch.Tensor  # (n, 2, 6)
     j_point: torch.Tensor  # (n, 2, 3)
-    intr: GridIntr
+    intr: GridIntr | DenseIntr
     weight: torch.Tensor  # (n,) Huber IRLS weight · validity
     valid: torch.Tensor  # (n,) bool
     cost: torch.Tensor  # (n,) robust cost (0 where invalid)
@@ -117,6 +129,20 @@ def _noncentral_projection_blocks(model, x_cam, warm_xy, max_proj_iterations):
     return px, pvalid, nb["pix_wrt_x"], intr
 
 
+def _parametric_projection_blocks(model, x_cam):
+    """Parametric projection + (px, valid, d px / d x_cam, DenseIntr), the
+    Jacobians by forward-mode AD per observation."""
+    px, _, pvalid = pm.project_points(model, x_cam)
+
+    def f(params, xc):
+        return pm.project_points(replace(model, params=params), xc[None])[0][0]
+
+    jac_fn = torch.func.vmap(torch.func.jacfwd(f, argnums=(0, 1)),
+                             in_dims=(None, 0))
+    j_params, jac_xcam = jac_fn(model.params, x_cam)
+    return px, pvalid, jac_xcam, DenseIntr(j_params=j_params)
+
+
 def segment_blocks(
     model,
     state: BAState,
@@ -145,10 +171,12 @@ def segment_blocks(
     if isinstance(model, ncg.NoncentralGenericModel):
         px, pvalid, a, intr = _noncentral_projection_blocks(
             model, x_cam, warm_xy, max_proj_iterations)
-    else:
+    elif protocol.is_grid_model(model):
         px, pvalid, a, intr = _grid_projection_blocks(
             model, x_cam, warm_xy, max_proj_iterations, tangent_frames
         )
+    else:
+        px, pvalid, a, intr = _parametric_projection_blocks(model, x_cam)
     valid = obs_valid & pvalid
 
     r_c = se3.quat_to_matrix(state.cam_q_rig[camera_idx])  # (n,3,3)
@@ -168,16 +196,17 @@ def segment_blocks(
     sq = torch.sum(r * r, dim=-1)
     vf = valid.to(dtype)
     mask3 = valid[:, None, None]
+    if isinstance(intr, GridIntr):
+        intr = GridIntr(j_win=torch.where(valid[None, :], intr.j_win, 0.0),
+                        base_xy=intr.base_xy, k_tangent=intr.k_tangent)
+    else:
+        intr = DenseIntr(j_params=torch.where(mask3, intr.j_params, 0.0))
     blocks = ObsBlocks(
         r=r,
         j_rig=torch.where(mask3, j_rig, 0.0),
         j_cam=torch.where(mask3, j_cam, 0.0),
         j_point=torch.where(mask3, j_point, 0.0),
-        intr=GridIntr(
-            j_win=torch.where(valid[None, :], intr.j_win, 0.0),
-            base_xy=intr.base_xy,
-            k_tangent=intr.k_tangent,
-        ),
+        intr=intr,
         weight=losses.huber_weight(sq, huber_px) * vf,
         valid=valid,
         cost=losses.huber_cost(sq, huber_px) * vf,
@@ -186,14 +215,28 @@ def segment_blocks(
     return blocks, new_warm
 
 
-def intr_apply_j(intr: GridIntr, tangent_intr):
-    """Intrinsics contribution to J·v: (n, 2)."""
+def as_dtype_of(j, like):
+    """``j`` in the dtype of ``like``: a bfloat16 Jacobian block (the CG
+    matvecs' copies) meets float32 or float64 vectors, and ``torch.einsum``
+    does not promote as the reference package's einsums do."""
+    return j if j.dtype == like.dtype else j.to(like.dtype)
+
+
+def intr_apply_j(intr, tangent_intr):
+    """Intrinsics contribution to J·v: (n, 2).  A grid block's ``j_win``
+    goes to the window op in its own dtype (float32 or bfloat16)."""
+    if isinstance(intr, DenseIntr):
+        return torch.einsum("nik,k->ni", as_dtype_of(intr.j_params,
+                                                     tangent_intr),
+                            tangent_intr)
     return window_cuda.window_apply_j(
         intr.j_win, intr.base_xy, tangent_intr.contiguous())
 
 
-def intr_apply_jtw(intr: GridIntr, ws, tangent_shape_like):
+def intr_apply_jtw(intr, ws, tangent_shape_like):
     """Intrinsics part of JᵀW·s, scattered into the tangent layout."""
+    if isinstance(intr, DenseIntr):
+        return torch.einsum("nik,ni->k", as_dtype_of(intr.j_params, ws), ws)
     gh, gw, k = tangent_shape_like.shape
     return window_cuda.window_apply_jtw(
         intr.j_win, intr.base_xy, ws.contiguous(), gh, gw, k)

@@ -5,7 +5,8 @@ pattern points and per-camera intrinsics models.  A point in global
 (pattern) space maps to camera space as ``x_cam = R_c (R_r x + t_r) + t_c``.
 
 The tangent has 6 DoF per imageset pose, 6 per camera extrinsic, 3 per
-point and 2 (central) or 5 (noncentral) per intrinsics-grid knot.
+point, and per camera 2 (central) or 5 (noncentral) per intrinsics-grid
+knot or the parameter vector of a parametric model.
 Flattened, it is laid out in field order: ``rig``, ``cam``, ``points``,
 then ``intr[c]`` for each camera.
 """
@@ -39,7 +40,7 @@ class BATangent:
     rig: torch.Tensor  # (M, 6) = (ω, δt)
     cam: torch.Tensor  # (C, 6)
     points: torch.Tensor  # (P, 3)
-    intr: tuple  # per camera: knot-tangent field (gh, gw, 2)
+    intr: tuple  # per camera: knot field (gh, gw, K) or parameters (P,)
 
     def leaves(self):
         return (self.rig, self.cam, self.points) + tuple(self.intr)
@@ -187,7 +188,7 @@ def scale_state(state: BAState, factor) -> BAState:
     """Scale the metric scale of the reconstruction (reference package
     ``ba/state.py:189-211``): translations and points scale, and so does a
     noncentral model's line-origin grid (camera-frame meters); direction
-    grids are scale-invariant."""
+    grids and parametric models (pixel-space) are scale-invariant."""
     return BAState(
         rig_q_global=state.rig_q_global,
         rig_t_global=state.rig_t_global * factor,

@@ -16,6 +16,14 @@ A knot outside the grid contributes nothing.  A tensor on the CPU goes to
 the plain version; a CUDA float32 ``j_win`` with an int32 ``base_xy`` goes to
 the kernel; anything else raises.  The kernels take K = 2 (central) and
 K = 5 (noncentral).
+
+:func:`window_apply_j` and :func:`window_apply_jtw` also read a bfloat16
+``j_win`` (the CG matvecs' copies, ``cg_jacobian_dtype="bfloat16"``): the
+kernel widens it to float32 on load and sums in float32 (its launches are
+counted as ``<name>_bf16``); the plain version widens it to float32 first.
+Every other tensor stays float32, and :func:`window_block_diag` takes
+float32 only: the LM step builds the preconditioner from the float32
+blocks.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from camera_calibration_torch import _cuda
 SUPPORTED_K = (2, 5)
 
 
-# The two tile layouts of a reduction block (``cct::Tile<K, kRing>`` in
+# The two tile layouts of a reduction block (``cct::Tile<K, kRing, E>`` in
 # ``csrc/window_reduce.cuh``), as (observations per tile, stages): a ring
 # of two 64-observation stages wherever it fits in one block's shared
 # memory, else one compact stage of 32.
@@ -37,11 +45,16 @@ RING = (64, 2)
 COMPACT = (32, 1)
 
 
-def _layout_smem_bytes(rows, gw, k, per_knot, layout):
+def _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes=4):
+    """One block's bytes: the stages (32K j_win rows of ``tile + 16 /
+    elem_bytes`` elements, two floats and two ints per observation), for a
+    bfloat16 j_win the float32 area its 16K prepared rows of ``tile + 4``
+    floats go to, the masks and the accumulator grid."""
     tile, stages = layout
-    stage = 32 * k * (tile + 4) + 4 * tile
-    return 4 * (stages * stage + (rows + gw) * (tile // 32)
-                + rows * gw * per_knot)
+    rows_floats = 32 * k * (tile + 16 // elem_bytes) * elem_bytes // 4
+    prep = 0 if elem_bytes == 4 else 16 * k * (tile + 4)
+    return 4 * (stages * (rows_floats + 4 * tile) + prep
+                + (rows + gw) * (tile // 32) + rows * gw * per_knot)
 
 
 def _fits(nbytes):
@@ -49,55 +62,63 @@ def _fits(nbytes):
 
 
 @functools.cache
-def reduction_plan(gh: int, gw: int, k: int, per_knot: int) -> tuple:
+def reduction_plan(gh: int, gw: int, k: int, per_knot: int,
+                   elem_bytes: int = 4) -> tuple:
     """(layout, band rows) of the reduction kernels' blocks at this grid
-    (``cct::band_rows`` and ``cct::use_ring``).
+    for a j_win of ``elem_bytes``-byte elements (``cct::band_rows`` and
+    ``cct::use_ring``).
 
     A block keeps ``band rows`` grid rows of the (gh, gw, per_knot)
     accumulator: all gh where the compact layout of the whole grid fits one
     block, else ``ceil(gh / nb)`` for the fewest bands ``nb`` that fit.
     The layout is :data:`RING` where it fits at those rows, else
     :data:`COMPACT`.  Raises where one grid row does not fit."""
+    def nbytes(rows, layout):
+        return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes)
+
     for nb in range(1, gh + 1):
         rows = -(-gh // nb)
-        if _fits(_layout_smem_bytes(rows, gw, k, per_knot, COMPACT)):
-            ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING))
-            return (RING if ring else COMPACT), rows
+        if _fits(nbytes(rows, COMPACT)):
+            return (RING if _fits(nbytes(rows, RING)) else COMPACT), rows
     raise ValueError(
         f"window reduction: one grid row of {gw} knots x {per_knot} values "
-        f"needs {_layout_smem_bytes(1, gw, k, per_knot, COMPACT)} bytes of "
-        f"shared memory, above the {_cuda.MAX_SMEM_BYTES}-byte limit of one "
-        "Hopper block")
+        f"needs {nbytes(1, COMPACT)} bytes of shared memory, above the "
+        f"{_cuda.MAX_SMEM_BYTES}-byte limit of one Hopper block")
 
 
-def reduction_layout(gh: int, gw: int, k: int, per_knot: int) -> tuple:
+def reduction_layout(gh: int, gw: int, k: int, per_knot: int,
+                     elem_bytes: int = 4) -> tuple:
     """The layout (:data:`RING` or :data:`COMPACT`) of the reduction
     kernels' blocks at this grid."""
-    return reduction_plan(gh, gw, k, per_knot)[0]
+    return reduction_plan(gh, gw, k, per_knot, elem_bytes)[0]
 
 
-def reduction_bands(gh: int, gw: int, k: int, per_knot: int) -> tuple:
+def reduction_bands(gh: int, gw: int, k: int, per_knot: int,
+                    elem_bytes: int = 4) -> tuple:
     """(band rows, bands): the second dimension of the partial pass's
     launch grid (1 band where the whole grid fits one block)."""
-    rows = reduction_plan(gh, gw, k, per_knot)[1]
+    rows = reduction_plan(gh, gw, k, per_knot, elem_bytes)[1]
     return rows, -(-gh // rows)
 
 
 def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int,
-                         band_rows: int | None = None) -> int:
+                         band_rows: int | None = None,
+                         elem_bytes: int = 4) -> int:
     """Shared memory of one block of the reduction kernels
     (``cct::partial_smem_bytes`` in ``csrc/window_reduce.cuh``): the
-    layout's stages, each 32K j_win rows of ``tile + 4`` floats plus two
-    floats and two ints per observation; one 32-bit mask word per 32
+    layout's stages, each 32K j_win rows plus two floats and two ints per
+    observation, and for a bfloat16 j_win the float32 area it is prepared
+    into (:func:`_layout_smem_bytes`); one 32-bit mask word per 32
     observations of a tile for each of the band's grid rows and for every
     grid column; and the band's (rows, gw, per_knot) accumulator grid.
     ``band_rows`` other than the plan's gives the block of such bands."""
-    layout, rows = reduction_plan(gh, gw, k, per_knot)
+    layout, rows = reduction_plan(gh, gw, k, per_knot, elem_bytes)
     if band_rows is not None:
         rows = band_rows
-        ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING))
+        ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING,
+                                        elem_bytes))
         layout = RING if ring else COMPACT
-    return _layout_smem_bytes(rows, gw, k, per_knot, layout)
+    return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes)
 
 
 def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
@@ -108,11 +129,12 @@ def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
 
 
 @functools.cache
-def _resident_blocks(name, k, gh, gw, device_index):
+def _resident_blocks(name, k, gh, gw, device_index, elem_bytes=4):
     """Partial-pass blocks of kernel ``name`` that one SM holds at once
-    (the kernel's occupancy at this grid's band and K)."""
+    (the kernel's occupancy at this grid's band, K and j_win type)."""
     with torch.cuda.device(device_index):
-        per_sm = getattr(_cuda.lib(), f"cct_{name}_blocks_per_sm")(k, gh, gw)
+        per_sm = getattr(_cuda.lib(), f"cct_{name}_blocks_per_sm")(
+            k, gh, gw, elem_bytes)
     if per_sm <= 0:
         raise RuntimeError(f"{name}: no block of the reduction fits on an SM "
                            f"at {gh}x{gw}, K={k}")
@@ -133,8 +155,16 @@ def _window_index(base_xy, gh, gw):
     return flat, mask
 
 
+def _widened(j_win):
+    """A bfloat16 ``j_win`` as float32, so the sums are float32 (the
+    reference package's fallback does the same); other types as they
+    are."""
+    return j_win.float() if j_win.dtype == torch.bfloat16 else j_win
+
+
 def window_apply_j_plain(j_win, base_xy, tangent):
     """J_intr·v in plain PyTorch: (N, 2)."""
+    j_win = _widened(j_win)
     gh, gw, k = tangent.shape
     n = j_win.shape[-1]
     flat, mask = _window_index(base_xy, gh, gw)
@@ -148,6 +178,7 @@ def window_apply_j_plain(j_win, base_xy, tangent):
 
 def window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k):
     """J_intrᵀ(W·s) scattered into (gh, gw, K) in plain PyTorch."""
+    j_win = _widened(j_win)
     n = j_win.shape[-1]
     flat, mask = _window_index(base_xy, gh, gw)
     c = j_win[:16 * k] * ws[:, 0] + j_win[16 * k:] * ws[:, 1]  # (16K, N)
@@ -173,12 +204,16 @@ def window_block_diag_plain(j_win, base_xy, w, gh, gw, k):
 # --------------------------------- kernels ---------------------------------
 
 
-def _check(name, j_win, base_xy, k):
-    if j_win.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: bfloat16 j_win is not ported yet (ROADMAP.md queue 1, "
-            "item 9: cg_jacobian_dtype='bfloat16' in the window kernels)")
-    _cuda.require_cuda_f32(name, j_win=j_win)
+def _check(name, j_win, base_xy, k, bf16=True):
+    """Raise unless the kernel takes these inputs; returns N.  ``bf16``:
+    whether the kernel reads a bfloat16 ``j_win``."""
+    if j_win.dtype == torch.bfloat16 and not bf16:
+        raise TypeError(
+            f"{name}: j_win must be float32: the kernel has no bfloat16 "
+            "read, since the LM step builds the block-Jacobi "
+            "preconditioner from the float32 blocks")
+    _cuda.require_cuda_f32(name, (torch.float32, torch.bfloat16),
+                           j_win=j_win)
     if k not in SUPPORTED_K:
         raise ValueError(f"{name}: K={k} not in {SUPPORTED_K}")
     n = j_win.shape[1]
@@ -202,39 +237,47 @@ def window_apply_j(j_win, base_xy, tangent):
     _cuda.check_smem(gh * gw * k * 4, name)
     out = torch.empty((n, 2), dtype=torch.float32, device=j_win.device)
     if n:
+        elem = j_win.element_size()
         _cuda.launch(name, j_win.data_ptr(), base_xy.data_ptr(),
                      base_xy.stride(0), base_xy.stride(1), tangent.data_ptr(),
-                     n, gh, gw, k, out.data_ptr())
+                     n, gh, gw, k, elem, out.data_ptr(),
+                     counted=_counted(name, j_win))
     return out
 
 
+def _counted(name, j_win):
+    """The launch-count key of the kernel variant that reads ``j_win``."""
+    return name + "_bf16" if j_win.dtype == torch.bfloat16 else name
+
+
 def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, cells_per_knot,
-                      out_shape, band_rows):
-    n = _check(name, j_win, base_xy, k)
+                      out_shape, band_rows, bf16):
+    n = _check(name, j_win, base_xy, k, bf16)
     _cuda.require_cuda_f32(name, per_obs=per_obs)
-    rows = reduction_plan(gh, gw, k, cells_per_knot)[1]
+    elem = j_win.element_size()
+    rows = reduction_plan(gh, gw, k, cells_per_knot, elem)[1]
     if band_rows is not None:
         if not 1 <= band_rows <= gh:
             raise ValueError(f"{name}: band_rows must be in 1..{gh}")
         rows = band_rows
-    _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot, rows),
-                     name)
+    _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot, rows,
+                                          elem), name)
     out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
     if n == 0:
         return out.zero_()
     dev = j_win.device
-    tile, _ = reduction_layout(gh, gw, k, cells_per_knot)
+    tile, _ = reduction_layout(gh, gw, k, cells_per_knot, elem)
     # the plan's occupancy sets the block count, so bands of other heights
     # sum the same partial rows
-    nblocks = reduction_blocks(n, tile,
-                               _resident_blocks(name, k, gh, gw, dev.index),
-                               _cuda.num_sms(dev))
+    nblocks = reduction_blocks(
+        n, tile, _resident_blocks(name, k, gh, gw, dev.index, elem),
+        _cuda.num_sms(dev))
     partial = torch.empty((nblocks, gh * gw * cells_per_knot),
                           dtype=torch.float32, device=j_win.device)
     _cuda.launch(name, j_win.data_ptr(), base_xy.data_ptr(),
                  base_xy.stride(0), base_xy.stride(1), per_obs.data_ptr(),
-                 n, gh, gw, k, rows, partial.data_ptr(), nblocks,
-                 out.data_ptr())
+                 n, gh, gw, k, elem, rows, partial.data_ptr(), nblocks,
+                 out.data_ptr(), counted=_counted(name, j_win))
     return out
 
 
@@ -249,15 +292,17 @@ def window_apply_jtw(j_win, base_xy, ws, gh, gw, k, *, band_rows=None):
     if ws.shape != (j_win.shape[1], 2):
         raise ValueError("window_apply_jtw: ws must be (N, 2)")
     return _reduction_launch("window_apply_jtw", j_win, base_xy, ws, gh, gw,
-                             k, k, (gh, gw, k), band_rows)
+                             k, k, (gh, gw, k), band_rows, bf16=True)
 
 
 def window_block_diag(j_win, base_xy, w, gh, gw, k, *, band_rows=None):
     """Per-knot K×K blocks of diag(JᵀWJ): (gh, gw, K, K); w (N,).
-    ``band_rows`` as for :func:`window_apply_jtw`."""
+    ``band_rows`` as for :func:`window_apply_jtw`.  The kernel takes a
+    float32 ``j_win`` only."""
     if j_win.device.type == "cpu":
         return window_block_diag_plain(j_win, base_xy, w, gh, gw, k)
     if w.shape != (j_win.shape[1],):
         raise ValueError("window_block_diag: w must be (N,)")
     return _reduction_launch("window_block_diag", j_win, base_xy, w, gh, gw,
-                             k, k * (k + 1) // 2, (gh, gw, k, k), band_rows)
+                             k, k * (k + 1) // 2, (gh, gw, k, k), band_rows,
+                             bf16=False)

@@ -1,4 +1,4 @@
-// J_intr . v for spline-grid intrinsics: apply_j_kernel<K>.
+// J_intr . v for spline-grid intrinsics: apply_j_kernel<K, E>.
 //
 // Replaces the Pallas kernel _apply_j_kernel of the reference package,
 // camera_calibration_tpu/ba/window_pallas.py:133-154, called through
@@ -9,13 +9,17 @@
 //   out[n, i] = sum_{y,x,j} j_win[i*16K + (y*4+x)*K + j, n]
 //                           * v[by+y, bx+x, j],
 // with (bx, by) = base[n]; a knot outside the grid contributes nothing.
-// K = 2 (central models) and K = 5 (noncentral) are instantiated.
+// K = 2 (central models) and K = 5 (noncentral) are instantiated, each for
+// a float32 and a bfloat16 j_win (the reference kernel's bf16 read, :152:
+// the CG matvecs' copies); bf16 values are widened on load and the sums
+// are float32.
 //
 // What bounds it on an H100: memory bandwidth.  Each observation reads
 // 32K floats of j_win once (256 B at K = 2) for 64K FLOP, far below the
-// card's ~20 FLOP/B balance point.  The design therefore reads j_win once,
-// coalesced: n is the contiguous axis of every j_win row, so the 32 threads
-// of a warp read 128 contiguous bytes per row.  The small tangent grid
+// card's ~20 FLOP/B balance point (bf16 halves the bytes).  The design
+// therefore reads j_win once, coalesced: n is the contiguous axis of every
+// j_win row, so the 32 threads of a warp read 128 (bf16: 64) contiguous
+// bytes per row.  The small tangent grid
 // (gh*gw*K floats, 2 KB at 16x16, K = 2) is staged once per block in shared
 // memory, so the window gathers never touch device memory.  The TPU
 // version's base-indicator matmuls and bf16 hi/lo splits are MXU devices
@@ -23,13 +27,15 @@
 
 #include <cuda_runtime.h>
 
+#include "element.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-template <int K>
+template <int K, class E>
 __global__ void __launch_bounds__(kThreads)
-apply_j_kernel(const float* __restrict__ jwin, const int* __restrict__ base,
+apply_j_kernel(const E* __restrict__ jwin, const int* __restrict__ base,
                int base_sn, int base_sc, const float* __restrict__ tangent,
                int n_obs, int gh, int gw, float* __restrict__ out) {
   extern __shared__ float stan[];
@@ -55,43 +61,62 @@ apply_j_kernel(const float* __restrict__ jwin, const int* __restrict__ base,
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         const int f = (y * 4 + x) * K + j;
-        acc0 += jwin[f * N + n] * v[j];
-        acc1 += jwin[(16 * K + f) * N + n] * v[j];
+        acc0 += cct::to_float(jwin[f * N + n]) * v[j];
+        acc1 += cct::to_float(jwin[(16 * K + f) * N + n]) * v[j];
       }
     }
   }
   reinterpret_cast<float2*>(out)[n] = make_float2(acc0, acc1);
 }
 
-template <int K>
-cudaError_t launch(const float* jwin, const int* base, int base_sn,
+template <int K, class E>
+cudaError_t launch(const void* jwin, const int* base, int base_sn,
                    int base_sc, const float* tangent, int n, int gh, int gw,
                    float* out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * gh * gw * K;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        apply_j_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        apply_j_kernel<K, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (n + kThreads - 1) / kThreads;
-  apply_j_kernel<K><<<blocks, kThreads, smem, stream>>>(
-      jwin, base, base_sn, base_sc, tangent, n, gh, gw, out);
+  apply_j_kernel<K, E><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const E*>(jwin), base, base_sn, base_sc, tangent, n, gh,
+      gw, out);
   return cudaGetLastError();
+}
+
+template <class E>
+cudaError_t launch_k(int k, const void* jwin, const int* base, int base_sn,
+                     int base_sc, const float* tangent, int n, int gh, int gw,
+                     float* out, cudaStream_t stream) {
+  if (k == 2)
+    return launch<2, E>(jwin, base, base_sn, base_sc, tangent, n, gh, gw,
+                        out, stream);
+  if (k == 5)
+    return launch<5, E>(jwin, base, base_sn, base_sc, tangent, n, gh, gw,
+                        out, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// elem_bytes: 4 for a float32 j_win, 2 for a bfloat16 one.
 extern "C" int cct_window_apply_j(const void* jwin, const void* base,
                                   int base_sn, int base_sc,
                                   const void* tangent, int n, int gh, int gw,
-                                  int k, void* out, void* stream) {
-  const float* j = static_cast<const float*>(jwin);
+                                  int k, int elem_bytes, void* out,
+                                  void* stream) {
   const int* b = static_cast<const int*>(base);
   const float* t = static_cast<const float*>(tangent);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 2) return static_cast<int>(launch<2>(j, b, base_sn, base_sc, t, n, gh, gw, o, s));
-  if (k == 5) return static_cast<int>(launch<5>(j, b, base_sn, base_sc, t, n, gh, gw, o, s));
+  if (elem_bytes == 4)
+    return static_cast<int>(launch_k<float>(k, jwin, b, base_sn, base_sc, t,
+                                            n, gh, gw, o, s));
+  if (elem_bytes == 2)
+    return static_cast<int>(launch_k<__nv_bfloat16>(
+        k, jwin, b, base_sn, base_sc, t, n, gh, gw, o, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

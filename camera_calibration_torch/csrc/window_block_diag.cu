@@ -10,7 +10,8 @@
 // What it computes, for knot (h, w) = (by+y, bx+x) inside the grid:
 //   B[h, w, j, l] += w_n * sum_i j_win[i, (y, x, j), n] * j_win[i, (y, x, l), n]
 // over all observations n; the upper pairs (j <= l) are accumulated and
-// mirrored.  K = 2 and K = 5 are instantiated.
+// mirrored.  K = 2 and K = 5 are instantiated, for a float32 j_win only:
+// the LM step builds the preconditioner from the float32 blocks.
 //
 // What bounds it on an H100: its least time is set by bytes (32K j_win
 // floats read once per observation, 16 * K(K+1)/2 * 4 FLOP); on the bench
@@ -98,12 +99,14 @@ struct BlockDiagOp {
 
 }  // namespace
 
+// elem_bytes: the element size of j_win; only 4 (float32) is taken.
 extern "C" int cct_window_block_diag(const void* jwin, const void* base,
                                      int base_sn, int base_sc, const void* w,
                                      int n, int gh, int gw, int k,
-                                     int band_rows,
+                                     int elem_bytes, int band_rows,
                                      void* partial, int nblocks, void* out,
                                      void* stream) {
+  if (elem_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
   const float* j = static_cast<const float*>(jwin);
   const int* b = static_cast<const int*>(base);
   const float* wt = static_cast<const float*>(w);
@@ -111,33 +114,44 @@ extern "C" int cct_window_block_diag(const void* jwin, const void* base,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k == 2)
-    return static_cast<int>(cct::launch_window_reduce<2, BlockDiagOp<2>>(
+    return static_cast<int>(cct::launch_window_reduce<2, BlockDiagOp<2>, float>(
         j, b, base_sn, base_sc, wt, n, gh, gw, band_rows, p, nblocks, o, s));
   if (k == 5)
-    return static_cast<int>(cct::launch_window_reduce<5, BlockDiagOp<5>>(
+    return static_cast<int>(cct::launch_window_reduce<5, BlockDiagOp<5>, float>(
         j, b, base_sn, base_sc, wt, n, gh, gw, band_rows, p, nblocks, o, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The entries below take the element size of j_win like
+// window_apply_jtw's; only 4 (float32) is built, anything else gives 0.
+
 // Blocks of the partial pass that fit on one SM at once (0 if none does).
-extern "C" int cct_window_block_diag_blocks_per_sm(int k, int gh, int gw) {
-  if (k == 2) return cct::window_reduce_blocks_per_sm<2, BlockDiagOp<2>>(gh, gw);
-  if (k == 5) return cct::window_reduce_blocks_per_sm<5, BlockDiagOp<5>>(gh, gw);
+extern "C" int cct_window_block_diag_blocks_per_sm(int k, int gh, int gw,
+                                                   int elem_bytes) {
+  if (elem_bytes != 4) return 0;
+  if (k == 2)
+    return cct::window_reduce_blocks_per_sm<2, BlockDiagOp<2>, float>(gh, gw);
+  if (k == 5)
+    return cct::window_reduce_blocks_per_sm<5, BlockDiagOp<5>, float>(gh, gw);
   return 0;
 }
 
 // Shared memory of one block of the partial pass (0 for another K).
-extern "C" long long cct_window_block_diag_smem_bytes(int k, int gh, int gw) {
+extern "C" long long cct_window_block_diag_smem_bytes(int k, int gh, int gw,
+                                                      int elem_bytes) {
+  if (elem_bytes != 4) return 0;
   if (k == 2)
-    return cct::partial_smem_bytes<2>(gh, gw, BlockDiagOp<2>::kPerKnot);
+    return cct::partial_smem_bytes<2, float>(gh, gw, BlockDiagOp<2>::kPerKnot);
   if (k == 5)
-    return cct::partial_smem_bytes<5>(gh, gw, BlockDiagOp<5>::kPerKnot);
+    return cct::partial_smem_bytes<5, float>(gh, gw, BlockDiagOp<5>::kPerKnot);
   return 0;
 }
 
 // Grid rows per band of the partial pass (0 where one row does not fit).
-extern "C" int cct_window_block_diag_band_rows(int k, int gh, int gw) {
-  if (k == 2) return cct::band_rows<2>(gh, gw, BlockDiagOp<2>::kPerKnot);
-  if (k == 5) return cct::band_rows<5>(gh, gw, BlockDiagOp<5>::kPerKnot);
+extern "C" int cct_window_block_diag_band_rows(int k, int gh, int gw,
+                                               int elem_bytes) {
+  if (elem_bytes != 4) return 0;
+  if (k == 2) return cct::band_rows<2, float>(gh, gw, BlockDiagOp<2>::kPerKnot);
+  if (k == 5) return cct::band_rows<5, float>(gh, gw, BlockDiagOp<5>::kPerKnot);
   return 0;
 }

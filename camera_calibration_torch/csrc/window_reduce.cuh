@@ -10,9 +10,12 @@
 //    tiles (tile i of block b covers observations (b + i*gridDim.x)*T ...)
 //    and keeps its band's rows of the accumulator grid (band_rows*gw*R
 //    floats) in shared memory.  Per tile:
-//    - Loads in flight: tiles are staged with cp.async (16-byte copies
-//      where N % 4 == 0 and j_win is 16-byte aligned, 4-byte copies
-//      otherwise).  Where it fits, a ring of two 64-observation stages lets
+//    - Loads in flight: tiles are staged with cp.async: 16-byte copies
+//      where every j_win row is 16-byte aligned (N a multiple of 4 floats
+//      or 8 bf16, j_win 16-byte aligned), else 4-byte copies where every
+//      row is 4-byte aligned (always for float32; bf16 needs N even and
+//      j_win 4-byte aligned), else (bf16 only) plain 2-byte loads and
+//      stores.  Where it fits, a ring of two 64-observation stages lets
 //      the next tile's j_win columns, weights and bases load while this one
 //      is reduced; grids whose accumulator leaves no room for the ring take
 //      one stage of 32 observations, which loads while the block waits (the
@@ -22,7 +25,11 @@
 //      the row's mask word iff the window of observation p covers the row
 //      (0 <= h - by < 4); the same for columns.  Meanwhile the other
 //      threads fold each observation's weights into its staged column
-//      (Op::prepare), so that a visit reads fewer values.
+//      (Op::prepare), so that a visit reads fewer values.  A float32 tile
+//      is prepared in place.  A bfloat16 tile (the CG matvecs' copies of
+//      j_win) is staged as bf16, half the bytes, and prepared into one
+//      float32 area beside the ring (Op::prepare_from), which the visits
+//      read: every sum stays float32.
 //    - Each knot has one owner thread for the tile (knot i*NT + lane*NW +
 //      warp: neighbouring knots, which a clustered tile hits together, go
 //      to different warps).  The owner visits the set bits of row mask AND
@@ -55,16 +62,20 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "element.cuh"
 
 namespace cct {
 
-// The tile layout of a partial-pass block.  kRing: two stages of 64
-// observations, one loading while one is reduced.  Otherwise (compact): one
-// stage of 32.  Largest square grids of one block (227 KB) in one band,
-// ring / compact: K=2 JtW 155 / 166, block diagonal 127 / 135; K=5 JtW
-// 84 / 102, block diagonal 48 / 58.  Past those the grid is split into
-// bands of rows (band_rows()).
-template <int K, bool kRing>
+// The tile layout of a partial-pass block for j_win elements of type E
+// (float or __nv_bfloat16).  kRing: two stages of 64 observations, one
+// loading while one is reduced.  Otherwise (compact): one stage of 32.
+// Largest square grids of one float32 block (227 KB) in one band, ring /
+// compact: K=2 JtW 155 / 166, block diagonal 127 / 135; K=5 JtW 84 / 102,
+// block diagonal 48 / 58.  Past those the grid is split into bands of rows
+// (band_rows()).
+template <int K, bool kRing, class E>
 struct Tile {
   // Observations per tile (32 per mask word).  Small tiles keep four
   // blocks (32 warps) on an SM, enough to hide the latency of the owner
@@ -73,15 +84,25 @@ struct Tile {
   // Threads per block of the partial pass: the first kObs build the masks,
   // the rest prepare the columns; all own knots.
   static constexpr int kThreads = 256;
-  // j_win row stride in shared memory: rows stay 16-byte aligned for
-  // cp.async and start 4 banks apart.
+  // Row stride, in floats, of the prepared (float32) j_win rows: rows stay
+  // 16-byte aligned for cp.async and start 4 banks apart.
   static constexpr int kStride = kObs + 4;
+  // Whether staged rows are bf16 and prepared into a float32 area apart.
+  static constexpr bool kWiden = !std::is_same<E, float>::value;
+  // Row stride, in elements, of the staged j_win rows (16-byte aligned).
+  static constexpr int kStrideE = kWiden ? kObs + 8 : kStride;
   // Tiles in shared memory at once.
   static constexpr int kStages = kRing ? 2 : 1;
   // Mask words per grid row or column.
   static constexpr int kWords = kObs / 32;
+  // The staged j_win rows of one stage, in floats.
+  static constexpr int kRowsFloats =
+      32 * K * kStrideE * static_cast<int>(sizeof(E)) / 4;
   // One stage: 32K j_win rows, two per-observation floats, two base ints.
-  static constexpr int kStageFloats = 32 * K * kStride + 4 * kObs;
+  static constexpr int kStageFloats = kRowsFloats + 4 * kObs;
+  // The float32 area a bf16 tile is prepared into: the 16K rows that the
+  // visits read (JtW's prepared values).
+  static constexpr int kPrepFloats = kWiden ? 16 * K * kStride : 0;
 };
 
 // Warps per block of the sum pass.
@@ -90,40 +111,41 @@ constexpr int kSumWarps = 16;
 // Shared memory one block may use on Hopper (227 KB).
 constexpr size_t kMaxSmemBytes = 232448;
 
-// Shared memory of one partial-pass block in a layout: the stages, the row
-// and column masks ((gh + gw) * kWords words), the accumulator grid.
-template <int K, bool kRing>
+// Shared memory of one partial-pass block in a layout: the stages, a bf16
+// tile's float32 area, the row and column masks ((gh + gw) * kWords
+// words), the accumulator grid.
+template <int K, bool kRing, class E>
 inline size_t layout_smem_bytes(int gh, int gw, int per_knot) {
-  using Tl = Tile<K, kRing>;
+  using Tl = Tile<K, kRing, E>;
   return sizeof(float) *
          (static_cast<size_t>(Tl::kStages) * Tl::kStageFloats +
-          static_cast<size_t>(gh + gw) * Tl::kWords +
+          Tl::kPrepFloats + static_cast<size_t>(gh + gw) * Tl::kWords +
           static_cast<size_t>(gh) * gw * per_knot);
 }
 
 // The ring wherever it fits in one block.
-template <int K>
+template <int K, class E>
 inline bool use_ring(int gh, int gw, int per_knot) {
-  return layout_smem_bytes<K, true>(gh, gw, per_knot) <= kMaxSmemBytes;
+  return layout_smem_bytes<K, true, E>(gh, gw, per_knot) <= kMaxSmemBytes;
 }
 
 // Shared memory of one partial-pass block that keeps `rows` grid rows, in
 // the layout it takes there.
-template <int K>
+template <int K, class E>
 inline size_t band_smem_bytes(int rows, int gw, int per_knot) {
-  return use_ring<K>(rows, gw, per_knot)
-             ? layout_smem_bytes<K, true>(rows, gw, per_knot)
-             : layout_smem_bytes<K, false>(rows, gw, per_knot);
+  return use_ring<K, E>(rows, gw, per_knot)
+             ? layout_smem_bytes<K, true, E>(rows, gw, per_knot)
+             : layout_smem_bytes<K, false, E>(rows, gw, per_knot);
 }
 
 // Rows per band: ceil(gh / nb) for the fewest bands nb whose compact layout
 // fits one block; gh where the whole grid fits.  0 where one grid row does
 // not fit.  Mirrored by reduction_plan in ba/window_cuda.py.
-template <int K>
+template <int K, class E>
 inline int band_rows(int gh, int gw, int per_knot) {
   for (int nb = 1; nb <= gh; ++nb) {
     const int rows = (gh + nb - 1) / nb;
-    if (layout_smem_bytes<K, false>(rows, gw, per_knot) <= kMaxSmemBytes)
+    if (layout_smem_bytes<K, false, E>(rows, gw, per_knot) <= kMaxSmemBytes)
       return rows;
   }
   return 0;
@@ -132,11 +154,11 @@ inline int band_rows(int gh, int gw, int per_knot) {
 // Shared memory of one partial-pass block at this grid (its band's rows, in
 // its layout; one row in the compact layout where even that does not fit).
 // Mirrored by reduction_smem_bytes in ba/window_cuda.py.
-template <int K>
+template <int K, class E>
 inline size_t partial_smem_bytes(int gh, int gw, int per_knot) {
-  const int rows = band_rows<K>(gh, gw, per_knot);
-  return rows > 0 ? band_smem_bytes<K>(rows, gw, per_knot)
-                  : layout_smem_bytes<K, false>(1, gw, per_knot);
+  const int rows = band_rows<K, E>(gh, gw, per_knot);
+  return rows > 0 ? band_smem_bytes<K, E>(rows, gw, per_knot)
+                  : layout_smem_bytes<K, false, E>(1, gw, per_knot);
 }
 
 __device__ __forceinline__ unsigned shared_addr(const void* p) {
@@ -171,38 +193,67 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// How a tile's j_win rows are copied: 16-byte cp.async copies where every
+// row is 16-byte aligned, 4-byte ones where every row is 4-byte aligned,
+// else plain loads and stores of single elements (bf16 only).
+enum StageMode { kCopy16 = 2, kCopy4 = 1, kScalar = 0 };
+
+template <class E>
+__device__ __forceinline__ int stage_mode(const E* jwin, int n_obs) {
+  constexpr int V16 = 16 / static_cast<int>(sizeof(E));
+  constexpr int V4 = 4 / static_cast<int>(sizeof(E));
+  const uintptr_t a = reinterpret_cast<uintptr_t>(jwin);
+  if (n_obs % V16 == 0 && (a & 15) == 0) return kCopy16;
+  if (n_obs % V4 == 0 && (a & 3) == 0) return kCopy4;
+  return kScalar;
+}
+
 // Start the copies of the tile at `start` into stage `st`: j_win rows
-// (stride kStride), then kPerObs floats per observation, then the bx and
-// by rows.  Observations past n_obs are not copied.
-template <class Tl, int K, int kPerObs>
-__device__ __forceinline__ void stage_tile(float* st, const float* jwin,
+// (kStrideE elements apart), then kPerObs floats per observation, then the
+// bx and by rows.  Observations past n_obs are not copied.  A bf16 tile
+// holds an even count in kCopy4 (N is even there and tiles start at
+// multiples of 32), so its pairs never straddle the end.
+template <class Tl, int K, int kPerObs, class E>
+__device__ __forceinline__ void stage_tile(float* st, const E* jwin,
                                            const int* base, int base_sn,
                                            int base_sc, const float* per_obs,
-                                           int n_obs, int start, bool vec) {
+                                           int n_obs, int start, int mode) {
   constexpr int T = Tl::kObs;
   constexpr int NT = Tl::kThreads;
-  constexpr int S = Tl::kStride;
+  constexpr int SE = Tl::kStrideE;
   constexpr int F = 32 * K;
+  constexpr int EB = static_cast<int>(sizeof(E));
   const size_t N = static_cast<size_t>(n_obs);
   const int count = min(T, n_obs - start);
   const int t = threadIdx.x;
-  if (vec) {
-    constexpr int C = T / 4;  // 16-byte chunks per row
+  E* rows = reinterpret_cast<E*>(st);
+  if (mode == kCopy16) {
+    constexpr int V = 16 / EB;  // elements per 16-byte chunk
+    constexpr int C = T / V;    // chunks per row
     for (int c = t; c < F * C; c += NT) {
       const int f = c / C;
-      const int q = (c - f * C) * 4;
+      const int q = (c - f * C) * V;
       const int left = count - q;
       if (left > 0)
-        cp_async16(st + f * S + q, jwin + f * N + start + q, min(left, 4) * 4);
+        cp_async16(rows + f * SE + q, jwin + f * N + start + q,
+                   min(left, V) * EB);
+    }
+  } else if (mode == kCopy4) {
+    constexpr int V = 4 / EB;  // elements per 4-byte copy
+    constexpr int C = T / V;
+    for (int c = t; c < F * C; c += NT) {
+      const int f = c / C;
+      const int p = (c - f * C) * V;
+      if (p < count) cp_async4(rows + f * SE + p, jwin + f * N + start + p);
     }
   } else {
     for (int c = t; c < F * T; c += NT) {
       const int f = c / T;
       const int p = c - f * T;
-      if (p < count) cp_async4(st + f * S + p, jwin + f * N + start + p);
+      if (p < count) rows[f * SE + p] = jwin[f * N + start + p];
     }
   }
-  float* sp = st + F * S;
+  float* sp = st + Tl::kRowsFloats;
   const float* po = per_obs + static_cast<size_t>(start) * kPerObs;
   for (int i = t; i < kPerObs * count; i += NT) cp_async4(sp + i, po + i);
   if (t < count) {
@@ -217,18 +268,21 @@ __device__ __forceinline__ void stage_tile(float* st, const float* jwin,
 // - kPerKnot: values per knot; kPerObs: floats per observation in per_obs
 //   (at most 2); kUsesWeights: whether accumulate reads them;
 // - prepare<S>(col, slot, ws): rewrites in place the rows of window slot
-//   `slot` (0..15) of one observation's staged column (col points at it,
-//   row stride S) so that accumulate reads fewer values;
+//   `slot` (0..15) of one observation's staged float32 column (col points
+//   at it, row stride S) so that accumulate reads fewer values;
+// - for a bf16 j_win, prepare_from<SI, S>(in, col, slot, ws): the same
+//   from the staged bf16 column `in` (row stride SI) into the float32
+//   column `col` (row stride S), within the first 16K rows;
 // - accumulate<S>(a, col, f0, ws): adds the observation's prepared
 //   contribution to window slot f0 / K (f0 = (y*4 + x)*K) to a[kPerKnot];
 // - store(out, knot, r, v): writes value r of a knot to the output.
-template <int K, class Op, bool kRing>
-__global__ void __launch_bounds__(Tile<K, kRing>::kThreads)
-window_partial_kernel(const float* __restrict__ jwin,
+template <int K, class Op, bool kRing, class E>
+__global__ void __launch_bounds__(Tile<K, kRing, E>::kThreads)
+window_partial_kernel(const E* __restrict__ jwin,
                       const int* __restrict__ base, int base_sn, int base_sc,
                       const float* __restrict__ per_obs, int n_obs, int gh,
                       int gw, int band_rows, float* __restrict__ partial) {
-  using Tl = Tile<K, kRing>;
+  using Tl = Tile<K, kRing, E>;
   constexpr int T = Tl::kObs;
   constexpr int NT = Tl::kThreads;
   constexpr int NW = NT / 32;
@@ -245,7 +299,9 @@ window_partial_kernel(const float* __restrict__ jwin,
   const int hb = min(band_rows, gh - h0);
   const int knots = hb * gw;
   float* ring = smem;
-  unsigned* rowm = reinterpret_cast<unsigned*>(ring + P * Q);
+  // a bf16 tile's prepared float32 rows (none for float32 tiles)
+  float* prep = ring + P * Q;
+  unsigned* rowm = reinterpret_cast<unsigned*>(prep + Tl::kPrepFloats);
   unsigned* colm = rowm + band_rows * W;
   float* acc = reinterpret_cast<float*>(colm + gw * W);
   for (int i = threadIdx.x; i < knots * R; i += NT) acc[i] = 0.0f;
@@ -253,8 +309,7 @@ window_partial_kernel(const float* __restrict__ jwin,
   const int ntiles = (n_obs + T - 1) / T;
   const int b = blockIdx.x;
   const int mine = b < ntiles ? (ntiles - 1 - b) / gridDim.x + 1 : 0;
-  const bool vec = n_obs % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(jwin) & 15) == 0;
+  const int mode = stage_mode(jwin, n_obs);
   auto tile_start = [&](int i) {
     return (b + i * static_cast<int>(gridDim.x)) * T;
   };
@@ -262,7 +317,7 @@ window_partial_kernel(const float* __restrict__ jwin,
     if (i < mine)
       stage_tile<Tl, K, Op::kPerObs>(ring + i * Q, jwin, base, base_sn,
                                      base_sc, per_obs, n_obs, tile_start(i),
-                                     vec);
+                                     mode);
     cp_async_commit();
   }
 
@@ -274,7 +329,7 @@ window_partial_kernel(const float* __restrict__ jwin,
     if constexpr (P == 1) {
       __syncthreads();  // tile i - 1 and the masks are consumed
       stage_tile<Tl, K, Op::kPerObs>(ring, jwin, base, base_sn, base_sc,
-                                     per_obs, n_obs, tile_start(i), vec);
+                                     per_obs, n_obs, tile_start(i), mode);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();  // everyone's copies of tile i have landed
@@ -284,13 +339,15 @@ window_partial_kernel(const float* __restrict__ jwin,
       if (i + P - 1 < mine)
         stage_tile<Tl, K, Op::kPerObs>(ring + ((i + P - 1) % P) * Q, jwin,
                                        base, base_sn, base_sc, per_obs, n_obs,
-                                       tile_start(i + P - 1), vec);
+                                       tile_start(i + P - 1), mode);
       cp_async_commit();
     }
 
     float* sj = ring + (i % P) * Q;
-    const float* sp = sj + 32 * K * S;
-    int* sb = reinterpret_cast<int*>(sj + 32 * K * S + 2 * T);
+    const float* sp = sj + Tl::kRowsFloats;
+    int* sb = reinterpret_cast<int*>(sj + Tl::kRowsFloats + 2 * T);
+    // the prepared float32 columns that the visits read
+    const float* cols = Tl::kWiden ? prep : sj;
     const int count = min(T, n_obs - tile_start(i));
     if (t < T) {
       // masks of this warp's 32 observations; then sb[p] becomes the
@@ -316,8 +373,14 @@ window_partial_kernel(const float* __restrict__ jwin,
         const int slot = j / T;
         // slots whose grid row is outside the band are never read
         if (p < count &&
-            static_cast<unsigned>(sby[p] + slot / 4 - h0) < static_cast<unsigned>(hb))
-          Op::template prepare<S>(sj + p, slot, sp + p * Op::kPerObs);
+            static_cast<unsigned>(sby[p] + slot / 4 - h0) < static_cast<unsigned>(hb)) {
+          if constexpr (Tl::kWiden)
+            Op::template prepare_from<Tl::kStrideE, S>(
+                reinterpret_cast<const E*>(sj) + p, prep + p, slot,
+                sp + p * Op::kPerObs);
+          else
+            Op::template prepare<S>(sj + p, slot, sp + p * Op::kPerObs);
+        }
       }
     }
     __syncthreads();
@@ -345,7 +408,7 @@ window_partial_kernel(const float* __restrict__ jwin,
 #pragma unroll
           for (int c = 0; c < Op::kPerObs; ++c)
             ws[c] = Op::kUsesWeights ? sp[p * Op::kPerObs + c] : 0.0f;
-          Op::template accumulate<S>(a, sj + p, hw - sb[p], ws);
+          Op::template accumulate<S>(a, cols + p, hw - sb[p], ws);
         }
       }
 #pragma unroll
@@ -386,70 +449,71 @@ window_sum_kernel(const float* __restrict__ partial, int nblocks, int knots,
   }
 }
 
-template <int K, class Op, bool kRing>
+template <int K, class Op, bool kRing, class E>
 cudaError_t set_partial_smem(int rows, int gw, size_t* smem) {
-  *smem = layout_smem_bytes<K, kRing>(rows, gw, Op::kPerKnot);
+  *smem = layout_smem_bytes<K, kRing, E>(rows, gw, Op::kPerKnot);
   if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(window_partial_kernel<K, Op, kRing>,
+  return cudaFuncSetAttribute(window_partial_kernel<K, Op, kRing, E>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <int K, class Op, bool kRing>
+template <int K, class Op, bool kRing, class E>
 int blocks_per_sm(int rows, int gw) {
   size_t smem = 0;
-  if (set_partial_smem<K, Op, kRing>(rows, gw, &smem) != cudaSuccess) return 0;
+  if (set_partial_smem<K, Op, kRing, E>(rows, gw, &smem) != cudaSuccess)
+    return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, window_partial_kernel<K, Op, kRing>,
-          Tile<K, kRing>::kThreads, smem) != cudaSuccess)
+          &blocks, window_partial_kernel<K, Op, kRing, E>,
+          Tile<K, kRing, E>::kThreads, smem) != cudaSuccess)
     return 0;
   return blocks;
 }
 
 // Partial-pass blocks that fit on one SM at once at this grid's band (0 if
 // none does).
-template <int K, class Op>
+template <int K, class Op, class E>
 int window_reduce_blocks_per_sm(int gh, int gw) {
-  const int rows = band_rows<K>(gh, gw, Op::kPerKnot);
+  const int rows = band_rows<K, E>(gh, gw, Op::kPerKnot);
   if (rows == 0) return 0;
-  return use_ring<K>(rows, gw, Op::kPerKnot)
-             ? blocks_per_sm<K, Op, true>(rows, gw)
-             : blocks_per_sm<K, Op, false>(rows, gw);
+  return use_ring<K, E>(rows, gw, Op::kPerKnot)
+             ? blocks_per_sm<K, Op, true, E>(rows, gw)
+             : blocks_per_sm<K, Op, false, E>(rows, gw);
 }
 
-template <int K, class Op, bool kRing>
-cudaError_t launch_partial(const float* jwin, const int* base, int base_sn,
+template <int K, class Op, bool kRing, class E>
+cudaError_t launch_partial(const E* jwin, const int* base, int base_sn,
                            int base_sc, const float* per_obs, int n, int gh,
                            int gw, int rows, float* partial, int nblocks,
                            cudaStream_t stream) {
   size_t smem = 0;
-  const cudaError_t err = set_partial_smem<K, Op, kRing>(rows, gw, &smem);
+  const cudaError_t err = set_partial_smem<K, Op, kRing, E>(rows, gw, &smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(nblocks, (gh + rows - 1) / rows);
-  window_partial_kernel<K, Op, kRing>
-      <<<grid, Tile<K, kRing>::kThreads, smem, stream>>>(
+  window_partial_kernel<K, Op, kRing, E>
+      <<<grid, Tile<K, kRing, E>::kThreads, smem, stream>>>(
           jwin, base, base_sn, base_sc, per_obs, n, gh, gw, rows, partial);
   return cudaGetLastError();
 }
 
 // `rows`: grid rows per band (band_rows() unless a caller asks for
 // narrower bands; the results are the same).
-template <int K, class Op>
-cudaError_t launch_window_reduce(const float* jwin, const int* base,
+template <int K, class Op, class E>
+cudaError_t launch_window_reduce(const E* jwin, const int* base,
                                  int base_sn, int base_sc,
                                  const float* per_obs, int n, int gh, int gw,
                                  int rows, float* partial, int nblocks,
                                  float* out, cudaStream_t stream) {
   if (rows < 1 || rows > gh || nblocks < 1) return cudaErrorInvalidValue;
   cudaError_t err =
-      use_ring<K>(rows, gw, Op::kPerKnot)
-          ? launch_partial<K, Op, true>(jwin, base, base_sn, base_sc, per_obs,
-                                        n, gh, gw, rows, partial, nblocks,
-                                        stream)
-          : launch_partial<K, Op, false>(jwin, base, base_sn, base_sc,
-                                         per_obs, n, gh, gw, rows, partial,
-                                         nblocks, stream);
+      use_ring<K, E>(rows, gw, Op::kPerKnot)
+          ? launch_partial<K, Op, true, E>(jwin, base, base_sn, base_sc,
+                                           per_obs, n, gh, gw, rows, partial,
+                                           nblocks, stream)
+          : launch_partial<K, Op, false, E>(jwin, base, base_sn, base_sc,
+                                            per_obs, n, gh, gw, rows,
+                                            partial, nblocks, stream);
   if (err != cudaSuccess) return err;
   const int cols = gh * gw * Op::kPerKnot;
   window_sum_kernel<Op><<<(cols + 31) / 32, dim3(32, kSumWarps), 0, stream>>>(

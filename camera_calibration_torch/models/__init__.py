@@ -1,1 +1,3 @@
-"""Camera models of the port (CentralGeneric in this slice)."""
+"""Camera models of the port: the grid models (CentralGeneric,
+NoncentralGeneric), the parametric models (ThinPrismFisheye, OpenCV,
+Radial) and a pinhole camera for synthetic ground truth."""

@@ -9,6 +9,8 @@ state is the same; the observations come from this package's projection.
 Its NoncentralGeneric twin takes the same draws, adds a smooth line-origin
 field and projects through the noncentral model (the recipe of the
 reference package's ``tests/test_ba.py:138-210`` at the bench's size).
+Its parametric twins take the same draws and project through a
+ThinPrismFisheye, OpenCV or Radial camera.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from camera_calibration_torch.ba.state import (
 from camera_calibration_torch.config import default_device
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models import parametric as pm
 from camera_calibration_torch.models.base import replace
 from camera_calibration_torch.ops import manifolds, se3
 
@@ -135,6 +138,72 @@ def make_noncentral_bench_problem(w=640, h=480, gres=16, n_points=1024,
     state = dataclasses.replace(state, intrinsics=(model,))
     state = perturb_noncentral_state(state, seed=seed + 7)
     return state, (table,), {"n_obs": int(table.valid.sum()), "gres": gres}
+
+
+def parametric_bench_model(kind, w=640, h=480, device=None,
+                           dtype=torch.float32):
+    """The bench's parametric cameras at w×h: ``"thin_prism_fisheye"``
+    (equidistant, the parameters of the reference package's
+    ``tests/ba_harness.py:51-53``), ``"opencv"`` (the same focal length and
+    principal point, small k1..k6, p1, p2) or ``"radial"`` (30 knots of a
+    smooth profile, as ``tests/test_parametric.py``'s Radial model)."""
+    device = default_device(device)
+    if kind == "thin_prism_fisheye":
+        params = [0.75 * w, 0.75 * w, 0.5 * w, 0.5 * h,
+                  0.1, -0.2, 0.1, -0.02, 1e-4, -5e-5, 3e-5, -4e-5]
+        cls, extra = pm.CentralThinPrismFisheyeModel, dict(
+            use_equidistant_projection=True)
+    elif kind == "opencv":
+        params = [0.75 * w, 0.75 * w, 0.5 * w, 0.5 * h,
+                  0.05, -0.02, 0.004, 0.01, -0.005, 0.001, 1e-4, -5e-5]
+        cls, extra = pm.CentralOpenCVModel, {}
+    elif kind == "radial":
+        t = np.linspace(0, 1, 30)
+        params = np.concatenate([
+            [0.65 * w, 0.65 * w, 0.5 * w, 0.5 * h, 1e-4, -8e-5, 4e-5, -6e-5],
+            0.12 * t * t - 0.05 * t])
+        cls, extra = pm.CentralRadialModel, {}
+    else:
+        raise ValueError(f"unknown parametric kind {kind!r}")
+    return cls(params=torch.as_tensor(params, dtype=dtype, device=device),
+               width=w, height=h, **extra)
+
+
+def make_parametric_bench_problem(kind, w=640, h=480, n_points=1024,
+                                  n_poses=256, seed=0, device=None,
+                                  dtype=torch.float32):
+    """(state, data tuple, meta) of the bench problem with a parametric
+    camera (:func:`parametric_bench_model`): the bench's draws,
+    observations projected through the model in float64, and the state
+    perturbed by :func:`perturb_parametric_state`."""
+    device = default_device(device)
+    state, x_cam = _bench_draws(w, h, 16, n_points, n_poses, seed, device,
+                                dtype)
+    model = parametric_bench_model(kind, w, h, device, dtype)
+    model64 = replace(model, params=model.params.double().cpu())
+    pxs, _, valid = pm.project_points(model64, x_cam)
+    table = _grid_table(pxs.to(dtype=dtype, device=device), valid.to(device),
+                        w, h, n_poses, n_points)
+    state = dataclasses.replace(state, intrinsics=(model,))
+    state = perturb_parametric_state(state, seed=seed + 1)
+    return state, (table,), {"n_obs": int(table.valid.sum()), "kind": kind}
+
+
+def perturb_parametric_state(state: BAState, seed,
+                             param_sigma=1e-3) -> BAState:
+    """:func:`perturb_bench_state`, and each parameter p moved by normal
+    noise of ``param_sigma``·max(|p|, 1) (the recipe of the reference
+    package's ``tests/ba_harness.py:170-171``), from ``seed + 1``."""
+    state = perturb_bench_state(state, seed)
+    rng = np.random.default_rng(seed + 1)
+    intr = []
+    for model in state.intrinsics:
+        p = model.params
+        scale = torch.clamp_min(p.abs(), 1.0)
+        noise = torch.as_tensor(rng.normal(0, param_sigma, tuple(p.shape)),
+                                dtype=p.dtype, device=p.device)
+        intr.append(replace(model, params=p + noise * scale))
+    return dataclasses.replace(state, intrinsics=tuple(intr))
 
 
 def perturb_noncentral_state(state: BAState, seed) -> BAState:

@@ -18,29 +18,44 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    (the window ops on random inputs, the projections on 262,144 random
    pixels of a 1920×1080 pinhole camera), and with K = 5 window Jacobians:
    at 45×79 the K = 5 block diagonal runs in bands of grid rows; narrower
-   bands than the plan's must give bit-identical results at 16×16;
+   bands than the plan's must give bit-identical results at 16×16; and the
+   two matvec kernels on a bfloat16 ``j_win`` (the CG matvecs' copies):
+   the central and noncentral bench ``j_win``, random 45×79 inputs at K = 2
+   and 5, N odd, even but not a multiple of 8, and a view that is not
+   4-byte aligned; bf16 JᵀW·s in narrower bands bit for bit;
 4. drives the main paths, each with the launch counts set to 0 just before
    and read just after: ``optimize`` on the full-size benchmark problem in
    the two-pass and cached-blocks forms, with ``solver="auto"`` (it
    resolves to ``schur``), ``"schur_direct"``, ``"schur_direct_points"``,
    ``"pcg"``, ``block_chunk``, ``debug_verify`` and ``profile_dir``; and on
    the NoncentralGeneric twin of the bench problem in both step forms
-   (the K = 5 window kernels).  It checks that every kernel of a path ran
-   and that the paired cost falls in every run, and compares one LM step
-   through the kernels with one through the plain versions, central and
-   noncentral;
+   (the K = 5 window kernels); on the parametric twins of the bench
+   problem (ThinPrismFisheye, OpenCV, Radial) in both step forms with
+   ``solver="auto"`` and ``"schur"``, and the ThinPrismFisheye one with
+   ``"schur_direct"``, ``"schur_direct_points"`` and ``"pcg"`` (no grid
+   kernel may launch there); and with ``cg_jacobian_dtype="bfloat16"`` on
+   the central, noncentral and ThinPrismFisheye problems (the bf16 kernels
+   launch once per CG iteration, the float32 matvec kernels only outside
+   CG).  It checks that every kernel of a path ran and that the paired cost
+   falls in every run, and compares one LM step through the kernels with
+   one through the plain versions, central and noncentral, in float32 and
+   with bf16 CG;
 5. times every kernel, its plain version and, for the two matvecs, a
    torch.sparse product as the library yardstick, with CUDA events around
    calls from Python (``ms``, ``plain_ms``, ``library_ms``), and every
    kernel again as one replay of a CUDA graph of 100 calls (``graph_ms``:
-   the card's time alone, without the host's per-call cost); the three
+   the card's time alone, without the host's per-call cost), the matvecs
+   also with the L2 cache flushed before each call (``cold_graph_ms``); the
+   three
    window kernels also at K = 5 on the noncentral bench's ``j_win``, the
    two reductions also at K = 5 and K = 2 at 45×79 (with a torch.sparse
    JᵀW·s beside them, and at K = 5 also in twice the bands, which is what
-   a band costs), the two projections also at 45×79; the LM iterations
-   per second of both step forms, of each solver mode and of the
-   noncentral path with the host clock; and the dense direct solve's
-   assembly and Cholesky apart;
+   a band costs), the two projections also at 45×79; the two bf16 matvec
+   kernels at K = 2 and 5 (with a torch.sparse product of the same bf16
+   matrix where torch.sparse takes one); the LM iterations per second of
+   both step forms, of each solver mode, of the noncentral path, of each
+   parametric path and of bf16 CG, with the host clock; and the dense
+   direct solve's assembly and Cholesky apart;
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
@@ -132,6 +147,19 @@ def time_ms(torch, fn, reps, warmup=2, graph=False):
     return start.elapsed_time(end) / reps
 
 
+def cold_graph_ms(torch, fn, reps=50):
+    """Graph-replay milliseconds of ``fn`` when its inputs are not in the
+    50 MB L2 cache: each call follows a 128 MB read (a sum), and the reads'
+    own time, measured alone, is taken off.  A bf16 ``j_win`` of the bench
+    (33.5 MB) fits in L2, so back-to-back replays of one call read it from
+    there; in the CG loop other blocks pass through between two calls."""
+    flush = torch.ones(32 * 2 ** 20, dtype=torch.float32,
+                       device=torch.device("cuda"))
+    both = time_ms(torch, lambda: (flush.sum(), fn()), reps, warmup=1,
+                   graph=True)
+    return both - time_ms(torch, flush.sum, reps, warmup=1, graph=True)
+
+
 def projection_work(n, grid_bytes, loop_flop, blocks):
     """(bytes, FLOP) of one projection call on N points: the directions and
     warm starts read, the grid (and, for the blocks form, both frame fields)
@@ -217,6 +245,15 @@ def main() -> int:
             f" layout, bands of {rows} rows ({wc.reduction_bands(45, 79, 5, per_knot)[1]}"
             f" bands), {wc.reduction_smem_bytes(45, 79, 5, per_knot)} B shared, "
             f"{wc._resident_blocks(name, 5, 45, 79, dev.index)} blocks per SM")
+    for k_, (gh_, gw_) in ((2, (16, 16)), (5, (16, 16)), (5, (45, 79))):
+        layout, rows = wc.reduction_plan(gh_, gw_, k_, k_, 2)
+        log(f"[2] window_apply_jtw bf16 K={k_} at {gh_}x{gw_}: "
+            f"{'ring' if layout == wc.RING else 'compact'} layout, bands of "
+            f"{rows} rows, {wc.reduction_smem_bytes(gh_, gw_, k_, k_, elem_bytes=2)}"
+            f" B shared (float32: "
+            f"{wc.reduction_smem_bytes(gh_, gw_, k_, k_)} B), "
+            f"{wc._resident_blocks('window_apply_jtw', k_, gh_, gw_, dev.index, 2)}"
+            " blocks per SM")
 
     # ------------------------------------------ 3. kernels vs plain versions
     rng = np.random.default_rng(0)
@@ -406,6 +443,86 @@ def main() -> int:
             log(f"    {name} K={k} 16x16 in bands of 1, 5 and 8 rows: "
                 f"bit-identical to one band {same}")
             require(same, f"{name} K={k}: banded result differs")
+
+    def check_window_bf16(j16, base, gh, gw, k, label):
+        """The two matvec kernels on a bfloat16 j_win vs their plain versions
+        on the same bf16 values promoted to float64, to WINDOW_REL_TOL;
+        bit-identical on a second run; launched as the bf16 variants."""
+        n = j16.shape[1]
+        tangent = torch.as_tensor(rng.normal(0, 1, (gh, gw, k)),
+                                  dtype=torch.float32, device=dev)
+        ws = torch.as_tensor(rng.normal(0, 1, (n, 2)), dtype=torch.float32,
+                             device=dev)
+        j64 = j16.double()
+        out = {}
+        for name, kern, plain in (
+                ("window_apply_j",
+                 lambda: wc.window_apply_j(j16, base, tangent),
+                 lambda: wc.window_apply_j_plain(j64, base, tangent.double())),
+                ("window_apply_jtw",
+                 lambda: wc.window_apply_jtw(j16, base, ws, gh, gw, k),
+                 lambda: wc.window_apply_jtw_plain(j64, base, ws.double(), gh,
+                                                   gw, k))):
+            before = dict(_cuda.launches)
+            got, ref = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            e = rel_err(got.double(), ref)
+            det = bool(torch.equal(got, again))
+            counted = (_cuda.launches[name + "_bf16"]
+                       - before.get(name + "_bf16", 0),
+                       _cuda.launches[name] - before.get(name, 0))
+            log(f"    {name} bf16 {label}: rel err {e:.3e}, repeatable {det}")
+            require(e <= WINDOW_REL_TOL, f"{name} bf16 {label}: rel err {e}")
+            require(det, f"{name} bf16 {label}: not bit-identical across runs")
+            require(counted == (2, 0), f"{name} bf16 {label}: launches "
+                    f"{counted} (bf16, float32)")
+            out[name + "_bf16"] = float((got.double() - ref).abs().max())
+        return out
+
+    def unaligned_bf16(jw):
+        """A contiguous bf16 copy of ``jw`` one element into a buffer: no
+        row is 4-byte aligned (the kernels' single-element staging)."""
+        buf = torch.empty(jw.numel() + 1, dtype=torch.bfloat16, device=dev)
+        view = buf[1:].view(jw.shape)
+        view.copy_(jw)
+        require(view.data_ptr() % 4 == 2, "bf16 view is aligned")
+        return view
+
+    bf16_errs = check_window_bf16(b0.intr.j_win.bfloat16(), b0.intr.base_xy,
+                                  gh, gw, 2, "bench 16x16 K=2")
+    bf16_errs_k5 = check_window_bf16(nb0.intr.j_win.bfloat16(),
+                                     nb0.intr.base_xy, gh, gw, 5,
+                                     "noncentral bench 16x16 K=5")
+    for k in (2, 5):
+        jw, base = random_windows[(45, 79, k)]
+        check_window_bf16(jw.bfloat16(), base, 45, 79, k,
+                          f"random 45x79 K={k}")
+    for nn, label in ((50_001, "N odd"), (50_002, "N % 8 == 2"),
+                      (50_000, "unaligned view")):
+        jw = torch.as_tensor(rng.normal(0, 1, (32 * 5, nn)),
+                             dtype=torch.float32, device=dev)
+        base = torch.as_tensor(
+            np.stack([rng.integers(-3, gw2, nn), rng.integers(-3, gh2, nn)],
+                     1), dtype=torch.int32, device=dev)
+        j16 = unaligned_bf16(jw) if label == "unaligned view" \
+            else jw.bfloat16()
+        check_window_bf16(j16, base, gh2, gw2, 5, f"random {gh2}x{gw2} K=5, "
+                          f"{label}")
+    # bf16 JᵀW·s in bands narrower than the plan's: the same bits
+    ws_b = torch.as_tensor(rng.normal(0, 1, (n_obs, 2)), dtype=torch.float32,
+                           device=dev)
+    for k, hh, ww, (jw, base), widths in (
+            (2, gh, gw, (b0.intr.j_win, b0.intr.base_xy), (1, 5, 8)),
+            (5, 45, 79, random_windows[(45, 79, 5)], (9, 20))):
+        j16 = jw.bfloat16()
+        whole = wc.window_apply_jtw(j16, base, ws_b, hh, ww, k)
+        same = all(bool(torch.equal(whole, wc.window_apply_jtw(
+            j16, base, ws_b, hh, ww, k, band_rows=r))) for r in widths)
+        log(f"    window_apply_jtw bf16 K={k} {hh}x{ww} in bands of "
+            f"{widths} rows: bit-identical to the plan's "
+            f"({wc.reduction_bands(hh, ww, k, k, 2)[1]} band(s)) {same}")
+        require(same, f"window_apply_jtw bf16 K={k}: banded result differs")
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 4. main paths
@@ -416,7 +533,7 @@ def main() -> int:
     def drive(label, st0, dat, runs, kernels):
         """One path: the counts set to 0, the ``optimize`` runs, the counts
         read; every kernel of the path launched, the paired cost falls in
-        every run, the state stays finite."""
+        every run, the state stays finite.  Returns (counts, histories)."""
         _cuda.reset_launches()
         t0_ = time.perf_counter()
         infos = [(form, opts, lm_pcg.optimize(st0, None, None, opts,
@@ -444,13 +561,13 @@ def main() -> int:
                     and bool(torch.isfinite(st.points).all())
                     and bool(torch.isfinite(st.rig_t_global).all()),
                     f"{label}, {form}: non-finite or misshapen state")
-        return counts
+        return counts, [info["history"] for _, _, (_, info) in infos]
 
     two_pass = dataclasses.replace(options, max_lm_iterations=3)
     cached = dataclasses.replace(two_pass, lm_steps_per_call=3)
     forms = (("two-pass", two_pass), ("cached-blocks", cached))
-    launches = drive("central bench, schur", state, data, forms,
-                     central_kernels)
+    launches, _ = drive("central bench, schur", state, data, forms,
+                        central_kernels)
     auto = dataclasses.replace(two_pass, solver="auto")
     resolved = lm_pcg.resolve_solver(auto, state).solver
     reduced = state.points.shape[0] * 3 + 6 + gh * gw * 2
@@ -495,8 +612,63 @@ def main() -> int:
             "profile_dir wrote no trace")
     report = lm_pcg.verify_cost(verify_state, data, options)
     log(f"    verify_cost after one LM iteration: {json.dumps(report)}")
-    nc_launches = drive("noncentral bench, schur", nstate, ndata, forms,
-                        window_kernels)
+    nc_launches, _ = drive("noncentral bench, schur", nstate, ndata, forms,
+                           window_kernels)
+
+    # The parametric twins of the bench problem: dense intrinsics blocks
+    # (einsums), so no grid kernel may launch.
+    param_problems = {}
+    auto_forms = tuple((f"{form}, auto", dataclasses.replace(o, solver="auto"))
+                       for form, o in forms)
+    for pkind in ("thin_prism_fisheye", "opencv", "radial"):
+        t1_ = time.perf_counter()
+        pst, pdat, pmeta = problems.make_parametric_bench_problem(pkind,
+                                                                  device=dev)
+        param_problems[pkind] = (pst, pdat)
+        log(f"[4] {pkind} bench problem: {pmeta['n_obs']} valid rows of "
+            f"{pdat[0].count}, {pst.intrinsics[0].params.numel()} "
+            f"parameters, made in {time.perf_counter() - t1_:.1f} s; auto "
+            f"resolves to {lm_pcg.resolve_solver(auto, pst).solver!r}")
+        counts, _ = drive(f"{pkind} bench", pst, pdat,
+                          auto_forms + tuple((f"{f}, schur", o)
+                                             for f, o in forms), ())
+        require(not any(counts.values()),
+                f"{pkind}: a grid kernel launched: {counts}")
+    tpf_state, tpf_data = param_problems["thin_prism_fisheye"]
+    for mode in ("schur_direct", "schur_direct_points", "pcg"):
+        counts, _ = drive(f"thin_prism_fisheye bench, {mode}", tpf_state,
+                          tpf_data, (("two-pass", dataclasses.replace(
+                              two_pass, solver=mode)),), ())
+        require(not any(counts.values()),
+                f"thin_prism_fisheye {mode}: a grid kernel launched: {counts}")
+
+    # bf16 CG: the bf16 matvec kernels launch once per CG iteration (cold
+    # starts: one matvec an iteration), the float32 ones only outside CG
+    # (schur: the back-substitution's J·v, the gradient's and the
+    # right-hand side's JᵀW·s, per LM step).
+    bf16 = dataclasses.replace(two_pass, cg_jacobian_dtype="bfloat16")
+    bf16_launches = {}
+    for label, st0, dat, grid in (
+            ("central bench", state, data, True),
+            ("noncentral bench", nstate, ndata, True),
+            ("thin_prism_fisheye bench", tpf_state, tpf_data, False)):
+        counts, (hist,) = drive(f"{label}, bf16 CG", st0, dat,
+                                (("two-pass", bf16),),
+                                ("window_apply_j_bf16",
+                                 "window_apply_jtw_bf16") if grid else ())
+        bf16_launches[label] = counts
+        n_cg = sum(h["pcg_iterations"] for h in hist)
+        expect = ({"window_apply_j_bf16": n_cg, "window_apply_jtw_bf16": n_cg,
+                   "window_apply_j": len(hist),
+                   "window_apply_jtw": 2 * len(hist)} if grid else
+                  dict.fromkeys(("window_apply_j_bf16",
+                                 "window_apply_jtw_bf16", "window_apply_j",
+                                 "window_apply_jtw"), 0))
+        got = {k_: counts.get(k_, 0) for k_ in expect}
+        log(f"    {label}, bf16 CG: {n_cg} CG iterations in {len(hist)} "
+            f"steps; matvec launches {got}")
+        require(got == expect, f"{label}, bf16 CG: matvec launches {got}, "
+                f"expected {expect}")
 
     # One LM step through the kernels and one through the plain versions,
     # both on the card, from the same state (the reference package's bar),
@@ -508,15 +680,19 @@ def main() -> int:
     # only.
     lam = torch.tensor(1e-2, dtype=torch.float32, device=dev)
     lam_first = torch.tensor(-1.0, dtype=torch.float32, device=dev)
-    for label, st0, dat, lam_, held in (
-            ("central", state, data, lam, True),
-            ("noncentral", nstate, ndata, lam_first, True),
-            ("noncentral, λ = 1e-2", nstate, ndata, lam, False)):
+    bf16_opts = dataclasses.replace(options, cg_jacobian_dtype="bfloat16")
+    for label, st0, dat, lam_, held, opts in (
+            ("central", state, data, lam, True, options),
+            ("noncentral", nstate, ndata, lam_first, True, options),
+            ("noncentral, λ = 1e-2", nstate, ndata, lam, False, options),
+            ("central, bf16 CG", state, data, lam, True, bf16_opts),
+            ("noncentral, bf16 CG", nstate, ndata, lam_first, True,
+             bf16_opts)):
         warm = tuple(s_.pixel for s_ in dat)
-        out_k = lm_pcg.lm_step(st0, warm, lam_, dat, options)
+        out_k = lm_pcg.lm_step(st0, warm, lam_, dat, opts)
         before = dict(_cuda.launches)
         with plain_routes(cgc, wc):
-            out_p = lm_pcg.lm_step(st0, warm, lam_, dat, options)
+            out_p = lm_pcg.lm_step(st0, warm, lam_, dat, opts)
         require(dict(_cuda.launches) == before,
                 "the plain step launched a kernel")
         cost_k, cost_p = float(out_k[5]), float(out_p[5])
@@ -647,6 +823,54 @@ def main() -> int:
             launch_key=key, counts=nc_launches,
             max_abs=rows_k5[key]["max_abs_err"],
             **({} if lib is None else {"library": lib}))
+    # The two matvec kernels' bf16 variants, on the bench j_win rounded to
+    # bf16 (K=2, launched on the central bf16 CG path) and the noncentral
+    # one (K=5): half the j_win bytes.  The library yardstick is
+    # torch.sparse with the same bf16 matrix, where it takes one: its
+    # vector and result are then bf16 too.
+    for k, (jw_f, base_f, tan_f, ws_f), path, errs in (
+            (2, (jw, base, tangent, ws), "central bench", bf16_errs),
+            (5, (jw5, base5, tangent5, ws5), "noncentral bench",
+             bf16_errs_k5)):
+        j16 = jw_f.bfloat16()
+        n_k = j16.shape[1]
+        inside_k = float(wc._window_index(base_f, gh, gw)[1].sum())
+        try:
+            j16_csr, jt16_csr = sparse_intrinsics_jacobian(torch, j16, base_f,
+                                                           gh, gw, k)
+            t16, w16 = tan_f.bfloat16(), ws_f.bfloat16()
+            libs = {"window_apply_j":
+                    lambda a=j16_csr, v=t16: a @ v.reshape(-1, 1),
+                    "window_apply_jtw":
+                    lambda a=jt16_csr, v=w16: a @ v.reshape(-1, 1)}
+            for fn in libs.values():
+                fn()
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"[5] torch.sparse takes no bf16 CSR product here: {exc}")
+            libs = {}
+        suffix = "_bf16" if k == 2 else "_bf16_k5"
+        for key, kern, plain, nbytes in (
+                ("window_apply_j",
+                 lambda j16=j16, b=base_f, t=tan_f: wc.window_apply_j(j16, b, t),
+                 lambda j16=j16, b=base_f, t=tan_f: wc.window_apply_j_plain(
+                     j16, b, t),
+                 j16.numel() * 2 + n_k * 2 * 4 + gh * gw * k * 4
+                 + n_k * 2 * 4),
+                ("window_apply_jtw",
+                 lambda j16=j16, b=base_f, w_=ws_f, k=k: wc.window_apply_jtw(
+                     j16, b, w_, gh, gw, k),
+                 lambda j16=j16, b=base_f, w_=ws_f, k=k:
+                 wc.window_apply_jtw_plain(j16, b, w_, gh, gw, k),
+                 j16.numel() * 2 + n_k * 2 * 4 + n_k * 2 * 4
+                 + gh * gw * k * 4)):
+            row = dict(source=rows[key]["source"],
+                       replaces=rows[key]["replaces"], kern=kern, plain=plain,
+                       nbytes=nbytes, flops=4 * k * inside_k,
+                       launch_key=key + "_bf16", counts=bf16_launches[path],
+                       max_abs=errs[key + "_bf16"])
+            if key in libs:
+                row["library"] = libs[key]
+            rows[key + suffix] = row
     kernels = []
     for name, r in rows.items():
         ms = time_ms(torch, r["kern"], reps=100, warmup=5)
@@ -654,10 +878,14 @@ def main() -> int:
         plain_ms = time_ms(torch, r["plain"], reps=3, warmup=1)
         library_ms = (time_ms(torch, r["library"], reps=100, warmup=5)
                       if "library" in r else None)
+        # the matvecs read j_win once a CG iteration: time them cold too
+        cold_ms = (cold_graph_ms(torch, r["kern"])
+                   if name.startswith("window_apply") else None)
         b_ms, b_by = bound_ms(r["nbytes"], r["flops"])
         n_launch = r.get("counts", launches).get(r.get("launch_key", name), 0)
         lib_txt = "" if library_ms is None else f", torch.sparse {library_ms:.4f} ms"
-        log(f"[5] {name}: {ms:.4f} ms, graph {graph_ms:.4f} ms (plain "
+        cold_txt = "" if cold_ms is None else f", L2-cold graph {cold_ms:.4f} ms"
+        log(f"[5] {name}: {ms:.4f} ms, graph {graph_ms:.4f} ms{cold_txt} (plain "
             f"{plain_ms:.4f} ms{lib_txt}, bound {b_ms:.4f} ms by {b_by}; "
             f"{n_launch} launches on its path) on {smi}")
         kernels.append({
@@ -666,6 +894,7 @@ def main() -> int:
             "max_abs_err": r.get("max_abs", max_abs.get(name)), "ms": ms,
             "graph_ms": graph_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
+            **({} if cold_ms is None else {"cold_graph_ms": cold_ms}),
         })
 
     # The two reductions beyond the bench shapes, on the random inputs of
@@ -771,18 +1000,30 @@ def main() -> int:
             f"iterations each, cost {hist[0]['cost']:.6g} -> "
             f"{hist[-1]['new_cost']:.6g}; {n_obs} rows, {gh}x{gw} grid) "
             f"on {smi}")
-    # Each solver mode and the noncentral path: 6 iterations each, from a
-    # fresh perturbation (host clock).
+    # Each solver mode, the noncentral path, each parametric path and bf16
+    # CG: 6 iterations each, from a fresh perturbation where the problem
+    # has one (host clock).
     n_mode = 6
+    six = dataclasses.replace(timed, max_lm_iterations=n_mode)
     for label, st0, dat, opts in (
             [(f"central, {m}", problems.perturb_bench_state(state, seed=100),
-              data, dataclasses.replace(timed, max_lm_iterations=n_mode,
-                                        solver=m))
+              data, dataclasses.replace(six, solver=m))
              for m in ("auto", "schur_direct", "schur_direct_points", "pcg")]
             + [(f"noncentral, schur, {form}", nstate, ndata,
-                dataclasses.replace(timed, max_lm_iterations=n_mode,
-                                    lm_steps_per_call=k_))
-               for form, k_ in (("two-pass", 1), ("cached-blocks", n_mode))]):
+                dataclasses.replace(six, lm_steps_per_call=k_))
+               for form, k_ in (("two-pass", 1), ("cached-blocks", n_mode))]
+            + [(f"{pkind}, schur, two-pass", *param_problems[pkind], six)
+               for pkind in ("thin_prism_fisheye", "opencv", "radial")]
+            + [(f"thin_prism_fisheye, {m}", tpf_state, tpf_data,
+                dataclasses.replace(six, solver=m))
+               for m in ("schur_direct", "schur_direct_points", "pcg")]
+            + [("central, schur, bf16 CG",
+                problems.perturb_bench_state(state, seed=100), data,
+                dataclasses.replace(six, cg_jacobian_dtype="bfloat16")),
+               ("noncentral, schur, bf16 CG", nstate, ndata,
+                dataclasses.replace(six, cg_jacobian_dtype="bfloat16")),
+               ("thin_prism_fisheye, schur, bf16 CG", tpf_state, tpf_data,
+                dataclasses.replace(six, cg_jacobian_dtype="bfloat16"))]):
         torch.cuda.synchronize()
         t1_ = time.perf_counter()
         _, info = lm_pcg.optimize(st0, None, None, opts, data=dat)

@@ -10,7 +10,10 @@ machine with a card they run without the suite's conftest:
 
 The K=5 reductions past one block's shared memory run in bands of grid
 rows (``ba/window_cuda.reduction_plan``); bands of any height give
-bit-identical results.
+bit-identical results.  The two matvec kernels also read a bfloat16 j_win
+(the CG matvecs' copies): held against the float64 plain version of the
+same bf16 values, with N odd, even but not a multiple of 8, and a j_win
+view that is not 4-byte aligned (the kernels' three staging paths).
 
 Tolerances: the window kernels to 1e-4 of the largest value of a float64
 plain reference (the reference package's bar for its TPU kernels); the
@@ -273,27 +276,29 @@ def test_window_apply_jtw_compact_layout(card):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("name,per_knot", [("window_apply_jtw", lambda k: k),
-                                           ("window_block_diag",
-                                            lambda k: k * (k + 1) // 2)])
-def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot):
+@pytest.mark.parametrize("name,per_knot,elems", [
+    ("window_apply_jtw", lambda k: k, (4, 2)),
+    ("window_block_diag", lambda k: k * (k + 1) // 2, (4,))])
+def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot, elems):
     """The Python reckoning equals the library's own, in both layouts and
-    with bands: shared memory and rows per band."""
+    with bands, for each j_win type a kernel reads: shared memory and rows
+    per band."""
     entry = getattr(_cuda.lib(), f"cct_{name}_smem_bytes")
     rows = getattr(_cuda.lib(), f"cct_{name}_band_rows")
-    for k in wc.SUPPORTED_K:
-        for gh, gw in ((16, 16), (45, 79), (48, 48), (56, 56), (58, 58),
-                       (59, 59), (84, 84), (102, 102), (127, 127), (128, 128),
-                       (160, 160), (10, 1000), (400, 400)):
-            assert entry(k, gh, gw) == wc.reduction_smem_bytes(
-                gh, gw, k, per_knot(k)), (k, gh, gw)
-            assert rows(k, gh, gw) == wc.reduction_plan(
-                gh, gw, k, per_knot(k))[1], (k, gh, gw)
-    # one grid row wider than fits one block: no band
+    for elem in elems:
+        for k in wc.SUPPORTED_K:
+            for gh, gw in ((16, 16), (45, 79), (48, 48), (56, 56), (58, 58),
+                           (59, 59), (84, 84), (102, 102), (127, 127),
+                           (128, 128), (160, 160), (10, 1000), (400, 400)):
+                assert entry(k, gh, gw, elem) == wc.reduction_smem_bytes(
+                    gh, gw, k, per_knot(k), elem_bytes=elem), (k, gh, gw)
+                assert rows(k, gh, gw, elem) == wc.reduction_plan(
+                    gh, gw, k, per_knot(k), elem)[1], (k, gh, gw)
+    # one grid row wider than fits one float32 block: no band
     for k in wc.SUPPORTED_K:
         widest = (_cuda.MAX_SMEM_BYTES // 4 - 32 * k * 36 - 128 - 1) \
             // (1 + per_knot(k))
-        assert rows(k, 2, widest) == 1 and rows(k, 2, widest + 1) == 0
+        assert rows(k, 2, widest, 4) == 1 and rows(k, 2, widest + 1, 4) == 0
 
 
 @pytest.mark.parametrize("gh,gw,k,band_rows", [
@@ -315,6 +320,75 @@ def test_narrower_bands_are_bit_identical(card, gh, gw, k, band_rows):
                                              wc.RING)
             <= _cuda.MAX_SMEM_BYTES else wc.COMPACT)
         assert torch.equal(call(), call(band_rows=band_rows))
+
+
+def _bf16_view(j_win, aligned):
+    """A bfloat16 copy of ``j_win``; with ``aligned=False`` a contiguous
+    view one element into a larger buffer, so no row is 4-byte aligned."""
+    if aligned:
+        return j_win.bfloat16()
+    buf = torch.empty(j_win.numel() + 1, dtype=torch.bfloat16,
+                      device=j_win.device)
+    view = buf[1:].view(j_win.shape)
+    view.copy_(j_win)
+    assert view.is_contiguous() and view.data_ptr() % 4 == 2
+    return view
+
+
+@pytest.mark.parametrize("gh,gw,k,n,aligned", [
+    (16, 16, 2, 20000, True), (16, 16, 5, 20000, True),
+    # even N, not a multiple of 8: 4-byte copies of bf16 pairs
+    (16, 16, 2, 20002, True), (21, 28, 5, 5006, True),
+    # odd N: single-element loads
+    (16, 16, 2, 20001, True), (21, 28, 5, 5001, True), (7, 9, 5, 33, True),
+    # a j_win view 2 bytes past 4-byte alignment
+    (16, 16, 2, 20000, False), (21, 28, 5, 5000, False),
+    # the 1080p default grid, and JᵀW·s of K = 5 in bands of the float32
+    # plan's height
+    (45, 79, 2, 50000, True), (45, 79, 5, 50000, True)])
+def test_bf16_window_kernels_match_plain(card, gh, gw, k, n, aligned):
+    """window_apply_j and window_apply_jtw on a bfloat16 j_win: within 1e-4
+    of the float64 plain version of the same bf16 values, repeatable, and
+    counted as the bf16 variants (the float32 kernels do not launch)."""
+    j32, base, tangent, ws, _ = _window_inputs(card, gh, gw, k, n, seed=k)
+    j_win = _bf16_view(j32, aligned)
+    j64 = j_win.double()
+    cases = (
+        ("window_apply_j", lambda: wc.window_apply_j(j_win, base, tangent),
+         wc.window_apply_j_plain(j64, base, tangent.double())),
+        ("window_apply_jtw",
+         lambda: wc.window_apply_jtw(j_win, base, ws, gh, gw, k),
+         wc.window_apply_jtw_plain(j64, base, ws.double(), gh, gw, k)),
+    )
+    for name, kernel, ref in cases:
+        before = dict(_cuda.launches)
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        assert _cuda.launches[name + "_bf16"] == before.get(name + "_bf16",
+                                                            0) + 2
+        assert _cuda.launches[name] == before.get(name, 0)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert _rel(got, ref) <= WINDOW_REL, name
+        assert torch.equal(got, again), f"{name} is not repeatable"
+        # the plain version widens bf16 itself
+        plain = getattr(wc, name + "_plain")
+        assert _rel(got, plain(j_win, base, *(
+            (tangent,) if name == "window_apply_j" else (ws, gh, gw, k)))) \
+            <= WINDOW_REL
+
+
+@pytest.mark.parametrize("gh,gw,k,band_rows", [
+    (16, 16, 2, 5), (16, 16, 5, 7), (45, 79, 5, 9), (45, 79, 2, 11)])
+def test_bf16_jtw_narrower_bands_are_bit_identical(card, gh, gw, k,
+                                                   band_rows):
+    j32, base, _, ws, _ = _window_inputs(card, gh, gw, k, 30001, seed=12)
+    j_win = j32.bfloat16()
+    rows, _ = wc.reduction_bands(gh, gw, k, k, 2)
+    assert band_rows < rows
+    whole = wc.window_apply_jtw(j_win, base, ws, gh, gw, k)
+    assert torch.equal(whole, wc.window_apply_jtw(j_win, base, ws, gh, gw, k,
+                                                  band_rows=band_rows))
 
 
 def test_project_smem_bytes_match_the_kernels(card):
@@ -340,8 +414,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     j_win, base, tangent, ws, w = _window_inputs(card, 16, 16, 2, 64, seed=0)
     with pytest.raises(TypeError):
         wc.window_apply_j(j_win.double(), base, tangent)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        wc.window_apply_jtw(j_win.bfloat16(), base, ws, 16, 16, 2)
+    # the block diagonal has no bfloat16 read (the LM step builds the
+    # preconditioner from the float32 blocks); the matvecs' other inputs
+    # stay float32
+    with pytest.raises(TypeError, match="float32"):
+        wc.window_block_diag(j_win.bfloat16(), base, w, 16, 16, 2)
+    with pytest.raises(TypeError):
+        wc.window_apply_jtw(j_win.bfloat16(), base, ws.bfloat16(), 16, 16, 2)
     with pytest.raises(ValueError):
         wc.window_block_diag(j_win, base.long(), w, 16, 16, 2)
     with pytest.raises(ValueError):
@@ -404,6 +483,64 @@ def test_lm_step_through_kernels_matches_plain(card, monkeypatch):
     _, info = lm_pcg.optimize(state, None, None, cached, data=data)
     hist = info["history"]
     assert hist[0]["accepted"] and hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]
+
+
+def test_bf16_cg_steps_through_kernels(card, monkeypatch):
+    """cg_jacobian_dtype="bfloat16" on the card: one central and one
+    noncentral LM step read the bf16 copies in the CG matvecs through the
+    bf16 kernels (one launch of each per CG iteration; the float32 matvec
+    kernels only outside CG), and match the same step through the plain
+    versions to 1e-3 on the new cost and the points."""
+    for make, lam0 in ((problems.make_bench_problem, 1e-2),
+                       (problems.make_noncentral_bench_problem, -1.0)):
+        state, data, _ = make(n_points=128, n_poses=16, device=card)
+        options = lm_pcg.BAOptions(max_pcg_iterations=12, proj_iterations=6,
+                                   cg_jacobian_dtype="bfloat16")
+        warm = tuple(s.pixel for s in data)
+        lam = torch.tensor(lam0, dtype=torch.float32, device=card)
+        _cuda.reset_launches()
+        out_k = lm_pcg.lm_step(state, warm, lam, data, options)
+        launched = dict(_cuda.launches)
+        iters = out_k[6]
+        assert iters > 0
+        assert launched["window_apply_j_bf16"] == iters
+        assert launched["window_apply_jtw_bf16"] == iters
+        # outside CG: the back-substitution's J·v, the gradient's and the
+        # right-hand side's JᵀW·s
+        assert launched["window_apply_j"] == 1
+        assert launched["window_apply_jtw"] == 2
+        with monkeypatch.context() as m:
+            for name in ("window_apply_j", "window_apply_jtw",
+                         "window_block_diag"):
+                m.setattr(wc, name, getattr(wc, name + "_plain"))
+            out_p = lm_pcg.lm_step(state, warm, lam, data, options)
+        window = [n for n in launched if n.startswith("window_")]
+        assert {n: _cuda.launches[n] for n in window} == {
+            n: launched[n] for n in window}
+        cost_k, cost_p = float(out_k[5]), float(out_p[5])
+        assert abs(cost_k - cost_p) <= STEP_REL * abs(cost_p)
+        dp = (out_k[0].points - out_p[0].points).abs().max()
+        assert float(dp) <= STEP_REL * float(out_p[0].points.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["thin_prism_fisheye", "opencv", "radial"])
+def test_parametric_optimize_on_the_card(card, kind):
+    """A short optimize of a parametric camera on the card lowers the
+    paired cost and launches no grid kernel; the bf16 run too."""
+    state, data, _ = problems.make_parametric_bench_problem(
+        kind, n_points=128, n_poses=16, device=card)
+    for dtype in ("float32", "bfloat16"):
+        options = lm_pcg.BAOptions(max_lm_iterations=2, max_pcg_iterations=12,
+                                   cg_jacobian_dtype=dtype)
+        _cuda.reset_launches()
+        out, info = lm_pcg.optimize(state, None, None, options, data=data)
+        torch.cuda.synchronize()
+        assert not any(_cuda.launches.values()), dict(_cuda.launches)
+        hist = info["history"]
+        assert hist[0]["accepted"]
+        assert hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]
+        assert out.intrinsics[0].params.is_cuda
+        assert bool(torch.isfinite(out.intrinsics[0].params).all())
 
 
 def test_noncentral_lm_step_through_kernels_matches_plain(card, monkeypatch):

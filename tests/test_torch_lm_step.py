@@ -17,9 +17,11 @@ relative (both run float64; only summation orders differ, and the
 observed gap is ~1e-15).
 
 It also checks the port's benchmark problem against ``bench.py``'s, the
-observation-table helpers, the options the port refuses and those it
-took on after the first slice, and that entry points never drop silently
-to the CPU.
+observation-table helpers, the options the port took on after the first
+slice (``cg_jacobian_dtype="bfloat16"`` and the parametric models since the
+third; ``tests/test_torch_bf16.py`` and ``tests/test_torch_parametric*.py``
+hold them against the JAX package) and what it still refuses, and that
+entry points never drop silently to the CPU.
 """
 
 import dataclasses
@@ -262,13 +264,22 @@ def test_observation_tables_match_reference():
 
 @pytest.mark.parametrize("change", [dict(cg_jacobian_dtype="bfloat16")])
 def test_unported_options_raise(problem, change):
+    """``cg_jacobian_dtype="bfloat16"`` raised until the third slice: it now
+    runs and lowers the paired cost; a dtype the option does not know
+    raises."""
     state, data = problem
     ts, td = _port(state, data)
-    options = T.BAOptions(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.optimize(ts, None, None, options, data=td)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.make_lm_step(options)
+    options = T.BAOptions(max_lm_iterations=1, max_pcg_iterations=20,
+                          proj_iterations=8, **change)
+    _, info = T.optimize(ts, None, None, options, data=td)
+    (h,) = info["history"]
+    assert h["accepted"] and h["paired_new_cost"] < h["paired_cost"]
+    assert h["pcg_iterations"] > 0
+    unknown = dataclasses.replace(options, cg_jacobian_dtype="float16")
+    with pytest.raises(ValueError, match="cg_jacobian_dtype"):
+        T.optimize(ts, None, None, unknown, data=td)
+    with pytest.raises(ValueError, match="cg_jacobian_dtype"):
+        T.make_lm_step(unknown)
 
 
 @pytest.mark.parametrize("change", [
@@ -298,7 +309,9 @@ def test_options_ported_since_the_first_slice_run(problem, change, tmp_path):
 
 def test_frozen_eliminated_group_and_other_models_raise(problem):
     """Freezing the eliminated group runs the full-system PCG (as the JAX
-    package does); only the parametric models still raise."""
+    package does).  The parametric models raised until the third slice: an
+    OpenCV camera now optimizes; an object that is no camera model
+    raises."""
     state, data = problem
     ts, td = _port(state, data)
     runs = []
@@ -313,13 +326,20 @@ def test_frozen_eliminated_group_and_other_models_raise(problem):
     assert not protocol.is_grid_model(object())
     from camera_calibration_tpu.models import parametric
 
-    pinhole = parametric.CentralOpenCVModel(
-        params=jnp.zeros(12), width=64, height=48)
-    for model in (object(), pinhole):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            protocol.intrinsics_tangent_zero(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.optimize(dataclasses.replace(ts, intrinsics=(pinhole,)), None,
+    pinhole = convert.camera_model(parametric.CentralOpenCVModel(
+        params=jnp.asarray([54.4, 54.4, 32.0, 24.0] + [0.0] * 8), width=64,
+        height=48), device="cpu")
+    assert torch.equal(protocol.intrinsics_tangent_zero(pinhole),
+                       torch.zeros(12, dtype=torch.float64))
+    _, info = T.optimize(dataclasses.replace(ts, intrinsics=(pinhole,)),
+                         None, None, T.BAOptions(max_lm_iterations=1),
+                         data=td)
+    (h,) = info["history"]
+    assert h["accepted"] and h["paired_new_cost"] < h["paired_cost"]
+    with pytest.raises(TypeError, match="not a camera model"):
+        protocol.intrinsics_tangent_zero(object())
+    with pytest.raises(TypeError, match="not a camera model"):
+        T.optimize(dataclasses.replace(ts, intrinsics=(object(),)), None,
                    None, T.BAOptions(max_lm_iterations=1), data=td)
 
 
@@ -330,6 +350,9 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch,
         config.default_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         problems.make_bench_problem(n_points=8, n_poses=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        problems.make_parametric_bench_problem("opencv", n_points=8,
+                                               n_poses=2)
     state, data = problem
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.ba_state(state)
