@@ -36,4 +36,15 @@ def default_device(device=None) -> torch.device:
     return device
 
 
+def host_device() -> torch.device:
+    """The device of the host-orchestration solves: the CPU.
+
+    Dense initialization's relative-pose bootstrap, the P3P polish and the
+    camera-model fits are small, branchy solves on a few thousand values
+    with a host decision after every iteration; the pipeline runs them here
+    and passes this device to each explicitly.
+    """
+    return torch.device("cpu")
+
+
 configure_precision()

@@ -16,3 +16,26 @@ import dataclasses
 
 def replace(model, **kwargs):
     return dataclasses.replace(model, **kwargs)
+
+
+def cast_floating(obj, dtype=None, device=None):
+    """``obj`` with every floating-point tensor moved to ``device`` and cast
+    to ``dtype`` (either may be None: unchanged), through dataclasses,
+    tuples and lists (a model, a BAState, observation tables).  Integer
+    and boolean tensors only move; other fields are kept."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        # move first: the cast then runs on the target device
+        if device is not None:
+            obj = obj.to(device)
+        if dtype is not None and obj.is_floating_point():
+            obj = obj.to(dtype)
+        return obj
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(cast_floating(x, dtype, device) for x in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: cast_floating(getattr(obj, f.name), dtype, device)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj

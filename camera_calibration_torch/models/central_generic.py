@@ -64,6 +64,16 @@ def grid_to_pixel(model: CentralGenericModel, gxy):
     return torch.stack([px, py], dim=-1)
 
 
+def grid_point_pixels(model: CentralGenericModel):
+    """Pixel-corner locations of all knots, (Hg, Wg, 2)."""
+    dev, dtype = model.grid.device, model.grid.dtype
+    gy, gx = torch.meshgrid(
+        torch.arange(model.grid_height, dtype=dtype, device=dev),
+        torch.arange(model.grid_width, dtype=dtype, device=dev),
+        indexing="ij")
+    return grid_to_pixel(model, torch.stack([gx, gy], dim=-1))
+
+
 def pixel_scale_to_grid_scale(model: CentralGenericModel):
     """(sx, sy) with grid_delta = s · pixel_delta."""
     ex, ey = _extent(model)

@@ -134,3 +134,24 @@ def eval_window_fixed_base(window, bx, by, gxy):
     grid coords gxy: the window stays pinned while gxy moves."""
     wx, wy = fixed_base_weights(bx, by, gxy)
     return torch.einsum("ny,nx,nyxc->nc", wy, wx, window)
+
+
+def dense_axis_weights(g, size, derivative=False):
+    """Dense per-axis weight rows (N, size) for grid coords g (N,): row n
+    holds the 4 cubic B-spline weights of point n at columns base..base+3
+    (zeros elsewhere, and knots past the grid are dropped)."""
+    base = torch.floor(g).long() - 1
+    t = g - (base + 1).to(g.dtype)
+    w4 = (cubic_bspline_weight_derivs(t) if derivative
+          else cubic_bspline_weights(t))  # (N, 4)
+    idx = base[:, None] + torch.arange(4, device=g.device)[None, :]
+    iota = torch.arange(size, device=g.device)
+    onehot = (iota[None, None, :] == idx[:, :, None]).to(g.dtype)
+    return torch.einsum("nks,nk->ns", onehot, w4)
+
+
+def eval_surface_dense_rows(grid, wx, wy):
+    """Surface values (N, C) from precomputed per-axis weight rows: grid
+    (H, W, C), wx (N, W), wy (N, H)."""
+    rows = torch.einsum("nh,hwc->nwc", wy, grid)
+    return torch.einsum("nw,nwc->nc", wx, rows)

@@ -7,6 +7,8 @@ batch dimensions and follow the device and dtype of their inputs.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -14,19 +16,43 @@ def quat_normalize(q):
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
+# quat_mul's terms: component c is t[c][0] + t[c][1] + t[c][2] + t[c][3]
+# (summed in that order) with t[c][k] = SIGN[c][k] · a_i·b_j at the flat
+# outer-product index 4·i + j in IDX[c][k]:
+#   w = aw·bw − ax·bx − ay·by − az·bz,
+#   x = aw·bx + ax·bw + ay·bz − az·by,
+#   y = aw·by − ax·bz + ay·bw + az·bx,
+#   z = aw·bz + ax·by − ay·bx + az·bw.
+_QMUL_IDX = ((0, 5, 10, 15), (1, 4, 11, 14), (2, 7, 8, 13), (3, 6, 9, 12))
+_QMUL_SIGN = ((1, -1, -1, -1), (1, 1, 1, -1), (1, -1, 1, 1), (1, 1, -1, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _qmul_consts(device, dtype):
+    """quat_mul's gather indices and signs and quat_conj's signs, built
+    once per (device, dtype): on the card a fresh tensor per call would
+    be a host-to-device copy on every LM step."""
+    return (torch.tensor(_QMUL_IDX, device=device),
+            torch.tensor(_QMUL_SIGN, dtype=dtype, device=device),
+            torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=dtype, device=device))
+
+
 def quat_mul(a, b):
-    """Hamilton product a*b for (..., 4) (w, x, y, z) quaternions."""
-    aw, ax, ay, az = a.unbind(-1)
-    bw, bx, by, bz = b.unbind(-1)
-    return torch.stack(
-        [
-            aw * bw - ax * bx - ay * by - az * bz,
-            aw * bx + ax * bw + ay * bz - az * by,
-            aw * by - ax * bz + ay * bw + az * bx,
-            aw * bz + ax * by - ay * bx + az * bw,
-        ],
-        dim=-1,
-    )
+    """Hamilton product a*b for (..., 4) (w, x, y, z) quaternions.
+
+    Computed on whole vectors (one outer product, one gather) rather than
+    per component, which keeps forward-mode AD cheap; the sums run in the
+    written order, so the result is that of the component formulas bit
+    for bit."""
+    a, b = torch.broadcast_tensors(a, b)
+    p = (a[..., :, None] * b[..., None, :]).reshape(a.shape[:-1] + (16,))
+    idx, sign, _ = _qmul_consts(a.device, a.dtype)
+    t = p[..., idx] * sign
+    return ((t[..., 0] + t[..., 1]) + t[..., 2]) + t[..., 3]
+
+
+def quat_conj(q):
+    return q * _qmul_consts(q.device, q.dtype)[2]
 
 
 def _cross(a, b):
@@ -83,3 +109,59 @@ def retract_pose(q, t, delta):
     """
     dq = quat_exp(delta[..., 0:3])
     return quat_mul(dq, q), t + delta[..., 3:6]
+
+
+def _matrix_to_quat_candidates(m, stack):
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    qw = stack([1 + m00 + m11 + m22, m21 - m12, m02 - m20, m10 - m01])
+    qx = stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20])
+    qy = stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21])
+    qz = stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22])
+    scores = stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                    1 - m00 + m11 - m22, 1 - m00 - m11 + m22])
+    return (qw, qx, qy, qz), scores
+
+
+def matrix_to_quat(m):
+    """(..., 3, 3) -> (..., 4) (w, x, y, z): of the four constructions,
+    the one with the largest diagonal score (Shepperd's method)."""
+    cands, scores = _matrix_to_quat_candidates(
+        m, lambda xs: torch.stack(xs, dim=-1))
+    cands = torch.stack(cands, dim=-2)  # (..., 4, 4)
+    best = torch.argmax(scores, dim=-1)
+    q = torch.take_along_dim(cands, best[..., None, None].expand(
+        best.shape + (1, 4)), dim=-2)[..., 0, :]
+    return quat_normalize(q)
+
+
+def matrix_to_quat_np(m):
+    """NumPy version of :func:`matrix_to_quat` for the host loops that
+    convert poses one at a time."""
+    import numpy as np
+
+    m = np.asarray(m, np.float64)
+    cands, scores = _matrix_to_quat_candidates(
+        m, lambda xs: np.stack(xs, -1))
+    cands = np.stack(cands, axis=-2)
+    best = np.argmax(scores, axis=-1)
+    q = np.take_along_axis(
+        cands, best[..., None, None].repeat(4, -1), axis=-2)[..., 0, :]
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def average_se3(qs, ts, weights=None):
+    """Average of SE(3) poses (N, 4), (N, 3): the chordal mean rotation
+    (the mean matrix projected onto SO(3) by SVD) and the mean
+    translation."""
+    if weights is None:
+        weights = torch.ones(qs.shape[0], dtype=ts.dtype, device=ts.device)
+    w = weights / torch.sum(weights)
+    mean_m = torch.einsum("n,nij->ij", w, quat_to_matrix(qs))
+    u, _, vt = torch.linalg.svd(mean_m)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det])
+    r = u @ torch.diag(d) @ vt
+    mean_t = torch.einsum("n,ni->i", w, ts)
+    return matrix_to_quat(r), mean_t

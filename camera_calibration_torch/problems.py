@@ -11,6 +11,11 @@ field and projects through the noncentral model (the recipe of the
 reference package's ``tests/test_ba.py:138-210`` at the bench's size).
 Its parametric twins take the same draws and project through a
 ThinPrismFisheye, OpenCV or Radial camera.
+
+``make_calibration_dataset`` is a feature dataset for the whole pipeline
+(dense initialization, initial state, calibration): a pinhole camera's
+views of a square board, with the draws of the reference package's
+``tests/test_dense_init.py:_make_synthetic_dataset``.
 """
 
 from __future__ import annotations
@@ -20,14 +25,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from camera_calibration_torch.ba.dataset import ObservationTable
+from camera_calibration_torch.ba.dataset import (
+    Dataset, Imageset, KnownGeometry, ObservationTable, PointFeature,
+)
 from camera_calibration_torch.ba.state import (
     BAState, broadcast_rows, transform_to_camera,
 )
-from camera_calibration_torch.config import default_device
+from camera_calibration_torch.config import default_device, host_device
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import noncentral_generic as ncg
 from camera_calibration_torch.models import parametric as pm
+from camera_calibration_torch.models import pinhole
 from camera_calibration_torch.models.base import replace
 from camera_calibration_torch.ops import manifolds, se3
 
@@ -290,3 +298,51 @@ def pinhole_projection_inputs(model, n, rng):
     warm = pix + torch.as_tensor(rng.normal(0, 2.0, (n, 2)),
                                  dtype=torch.float32, device=dev)
     return dirs.contiguous(), cg.pixel_to_grid(model, warm).contiguous()
+
+
+def make_calibration_dataset(seed=0, n_imagesets=8, k=12, w=320, h=240,
+                             cell=0.03):
+    """A single-camera feature dataset: a w×h pinhole camera (f = 0.9·w,
+    principal point at the center) and ``n_imagesets`` views of a k×k board
+    of ``cell``-meter squares, each from a random rotation (0.12 rad per
+    axis) about 0.45–0.7 m in front of the board.  The features are the
+    exact projections of the corners inside the image.
+
+    Returns (Dataset, camera, ground-truth image_tr_global poses).  The
+    numbers are computed in float64 on ``config.host_device()``.
+    """
+    dev = host_device()
+    rng = np.random.default_rng(seed)
+    cam = pinhole.make_pinhole(0.9 * w, 0.9 * w, 0.5 * w, 0.5 * h, w, h,
+                               device=dev)
+    geometry = KnownGeometry(
+        cell_length_in_meters=cell,
+        feature_id_to_position={
+            r * k + c: (c, r) for r in range(k) for c in range(k)},
+    )
+    pattern_pts = np.array(
+        [[c * cell, r * cell, 0.0] for r in range(k) for c in range(k)])
+    center_off = (k - 1) * cell / 2
+
+    imagesets = []
+    gt_poses = []
+    for _ in range(n_imagesets):
+        # the camera looks at the pattern from negative z
+        q = se3.quat_exp(torch.as_tensor(rng.normal(0, 0.12, 3), device=dev))
+        r = se3.quat_to_matrix(q).numpy()
+        # image_tr_global: x_cam = R x_g + t, the pattern in front (z > 0)
+        t = np.array([
+            -center_off + rng.normal(0, 0.05),
+            -center_off + rng.normal(0, 0.05),
+            rng.uniform(0.45, 0.7),
+        ])
+        x_cam = pattern_pts @ r.T + t
+        px, valid = pinhole.project(cam, torch.as_tensor(x_cam, device=dev))
+        px, valid = px.numpy(), valid.numpy()
+        feats = [PointFeature(xy=px[j], feature_id=j)
+                 for j in range(k * k) if valid[j]]
+        imagesets.append(Imageset(features=[feats]))
+        gt_poses.append((r, t))
+    ds = Dataset(num_cameras=1, image_sizes=[(w, h)], imagesets=imagesets,
+                 known_geometries=[geometry])
+    return ds, cam, gt_poses

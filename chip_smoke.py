@@ -59,8 +59,24 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
-7. prints one JSON line listing every kernel, the ``nvidia-smi`` line of
-   the card, and last ``{"ok": true, "device": {...}}``.
+7. runs the calibration pipeline from a feature dataset as the command
+   line does, with its defaults: 100 views of a 24×24 board by a 1920×1080
+   pinhole camera (``problems.make_calibration_dataset``), written to
+   ``dataset.bin`` and read back; dense initialization (the native
+   densification, the relative-pose bootstrap and the P3P polish on the
+   host); the initial state on the card in float32 at the coarsest of the
+   three pyramid grids (25×44, 34×59, 45×79); ``calibrate`` with the
+   counts set to 0 just before it and read per BA stage, then a float64
+   polish on the CPU; the state saved with ``state_io``.  It requires the
+   median reprojection error under 0.02 px, the metric scale within 0.05
+   of 1, the final grid 45×79 and all five kernels launched at each of the
+   three grids; prints each stage's host time, LM iterations and LM it/s
+   and the launches per grid; and holds each kernel to its plain version
+   and one LM step through the kernels to the plain step at the inputs of
+   each grid's first BA stage;
+8. prints one JSON line listing every kernel (with its launches per
+   pipeline grid), the ``nvidia-smi`` line of the card, and last
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA card, when
 the package is missing, or when any phase fails.
@@ -102,6 +118,21 @@ STEP_REL_TOL = 1e-3
 
 # Points of the 1080p projection case ([3], [5]): as many as the bench rows.
 N_PROJECTION = 262_144
+
+# The calibration pipeline ([7]): a 1920×1080 pinhole camera and 100 views
+# of a 24×24 board of 2 cm squares, calibrated with the command line's
+# defaults (3 pyramid levels at 25 px per cell, outlier factor 8, 100 final
+# iterations, solver "auto", float32 on the card and a 10-iteration float64
+# polish on the CPU).
+PIPELINE_IMAGESETS = 100
+PIPELINE_MEDIAN_PX = 0.02
+# One LM step through the kernels vs the plain step at a pipeline state:
+# the new state's RMS residual to 5e-6 px, ten times the largest gap read
+# on an H100 (5.0e-7 px at 34×59, where the RMS is 9.7e-4 px; 2.6e-7 px at
+# 45×79 and 1e-8 px at 25×44).
+PIPELINE_STEP_RMS_PX = 5e-6
+PIPELINE_KERNELS = ("project", "project_blocks", "window_apply_j",
+                    "window_apply_jtw", "window_block_diag")
 
 
 def log(*args):
@@ -913,19 +944,24 @@ def main() -> int:
         e = rel_err(lib_x().double(), wc.window_apply_jtw_plain(
             jw_x.double(), base_x, ws_x.double(), hh, ww, k))
         require(e <= WINDOW_REL_TOL, f"sparse JtW {hh}x{ww} K={k}: rel err {e}")
-        for name, fn, lib, nbytes, flops in (
+        for name, fn, plain, lib, nbytes, flops in (
                 ("window_apply_jtw",
                  lambda **kw: wc.window_apply_jtw(jw_x, base_x, ws_x, hh, ww,
                                                   k, **kw),
+                 lambda: wc.window_apply_jtw_plain(jw_x, base_x, ws_x, hh,
+                                                   ww, k),
                  lib_x, common + nx * 2 * 4 + hh * ww * k * 4,
                  4 * k * inside_x),
                 ("window_block_diag",
                  lambda **kw: wc.window_block_diag(jw_x, base_x, w_x, hh, ww,
                                                    k, **kw),
+                 lambda: wc.window_block_diag_plain(jw_x, base_x, w_x, hh,
+                                                    ww, k),
                  None, common + nx * 4 + hh * ww * k * k * 4,
                  6 * (k * (k + 1) // 2) * inside_x)):
             ms = time_ms(torch, fn, reps=100, warmup=5)
             graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+            plain_ms = time_ms(torch, plain, reps=3, warmup=1)
             library_ms = (None if lib is None
                           else time_ms(torch, lib, reps=100, warmup=5))
             b_ms, b_by = bound_ms(nbytes, flops)
@@ -934,11 +970,13 @@ def main() -> int:
             lib_txt = ("" if library_ms is None
                        else f", torch.sparse {library_ms:.4f} ms")
             log(f"[5] {name} random {hh}x{ww} K={k}: {ms:.4f} ms, graph "
-                f"{graph_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}{lib_txt}; "
-                f"{nx} observations, {bands} band(s)) on {smi}")
+                f"{graph_ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}{lib_txt}; {nx} observations, "
+                f"{bands} band(s)) on {smi}")
             if (hh, ww, k) == (45, 79, 5):
                 rows_k5[name]["at_45x79"] = dict(
-                    ms=ms, graph_ms=graph_ms, bound_ms=b_ms, bound_by=b_by,
+                    ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by,
                     library_ms=library_ms, bands=bands,
                     max_abs_err=rows_k5[name]["err_45x79"])
                 # what a band costs: the same call in twice the bands (the
@@ -958,20 +996,25 @@ def main() -> int:
     _, iters_hd = cgc.lm_loop_plain(hd.grid, dirs_hd, g0_hd, lo_hd, hi_hd,
                                     iters, eps)
     loop_flop_hd = FLOP_LM_ITERATION * float(iters_hd.sum())
-    for name, fn, blocks in (
+    hd_args = (dirs_hd, g0_hd, lo_hd, hi_hd)
+    hd_blk_args = (hd.grid, t1_hd, t2_hd, dirs_hd, g0_hd, lo_hd, hi_hd,
+                   (1 / sx_hd, 1 / sy_hd), iters, eps)
+    for name, fn, plain, blocks in (
             ("project",
-             lambda: cgc.project_grid_coords(hd.grid, dirs_hd, g0_hd, lo_hd,
-                                             hi_hd, iters, eps), False),
+             lambda: cgc.project_grid_coords(hd.grid, *hd_args, iters, eps),
+             lambda: cgc.project_grid_coords_plain(hd.grid, *hd_args, iters,
+                                                   eps), False),
             ("project_blocks",
-             lambda: cgc.project_blocks(hd.grid, t1_hd, t2_hd, dirs_hd, g0_hd,
-                                        lo_hd, hi_hd, (1 / sx_hd, 1 / sy_hd),
-                                        iters, eps), True)):
+             lambda: cgc.project_blocks(*hd_blk_args),
+             lambda: cgc.project_blocks_plain(*hd_blk_args), True)):
         ms = time_ms(torch, fn, reps=100, warmup=5)
         graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
         b_ms, b_by = bound_ms(*projection_work(
             N_PROJECTION, 45 * 79 * 3 * 4, loop_flop_hd, blocks))
         log(f"[5] {name} 1080p 45x79: {ms:.4f} ms, graph {graph_ms:.4f} ms "
-            f"(bound {b_ms:.4f} ms by {b_by}; {N_PROJECTION} points, "
+            f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{N_PROJECTION} points, "
             f"{float(iters_hd.float().mean()):.3f} LM iterations each) on "
             f"{smi}")
 
@@ -1064,7 +1107,19 @@ def main() -> int:
     # ------------------------------------------------ 6. where the time goes
     profile_step(torch, lm_pcg, problems.perturb_bench_state(state, seed=101),
                  data, dataclasses.replace(timed, max_lm_iterations=2), smi)
-    log(f"[6] whole run {time.perf_counter() - t_start:.1f} s")
+    log(f"[6] whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------ 7. the calibration pipeline
+    pipeline = calibration_pipeline(
+        torch, smi, PIPELINE_IMAGESETS,
+        checks=dict(project=check_project, blocks=check_blocks,
+                    window=check_window))
+    for row in kernels:
+        if row["name"] in PIPELINE_KERNELS:
+            row["pipeline_launches"] = {
+                grid: counts.get(row["name"], 0)
+                for grid, counts in pipeline["launches"].items()}
+    log(f"[7] whole run {time.perf_counter() - t_start:.1f} s")
 
     for row in kernels:
         extra = rows_k5.get(row["name"][:-len("_k5")], {}).get("at_45x79")
@@ -1076,6 +1131,250 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
+    """The calibration pipeline from a feature dataset, as the command line
+    runs it: the dataset written to ``dataset.bin`` and read back, dense
+    initialization, the initial state on the card at the coarsest pyramid
+    grid (float32) and ``calibrate``, with the launch counts set to 0 just
+    before ``calibrate`` and read per BA stage.  Holds the result to the
+    quality bar (median reprojection error, metric scale, final grid), every
+    kernel to its plain version at each pyramid grid's own inputs, and one
+    LM step per grid through the kernels to the plain step.  Returns the
+    launches per grid and the report."""
+    from camera_calibration_torch import _cuda, native, problems
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.ba import window_cuda as wc
+    from camera_calibration_torch.init.dense_init import (
+        DenseInitializer, DenseInitOptions,
+    )
+    from camera_calibration_torch.init.state_init import build_ba_state
+    from camera_calibration_torch.io import dataset_bin, state_io
+    from camera_calibration_torch.models import central_generic_cuda as cgc
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out_dir = _cuda.BUILD_ROOT / "pipeline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    times = {}
+    t0 = time.perf_counter()
+    ds, _, _ = problems.make_calibration_dataset(
+        seed=2, n_imagesets=n_imagesets, k=24, w=1920, h=1080, cell=0.02)
+    n_features = sum(len(s_.features[0]) for s_ in ds.imagesets)
+    path = out_dir / "dataset.bin"
+    dataset_bin.save_dataset(path, ds)
+    ds = dataset_bin.load_datasets(str(path))
+    require(sum(len(s_.features[0]) for s_ in ds.imagesets) == n_features,
+            "dataset.bin lost features")
+    times["dataset"] = time.perf_counter() - t0
+    log(f"[7] dataset: {len(ds.imagesets)} imagesets of a "
+        f"{ds.image_sizes[0][0]}x{ds.image_sizes[0][1]} camera, {n_features} "
+        f"features, written to and read from dataset.bin "
+        f"({path.stat().st_size} bytes) in {times['dataset']:.2f} s")
+
+    native.reset_calls()
+    t0 = time.perf_counter()
+    result = DenseInitializer(ds, 0, DenseInitOptions(seed=0)).run()
+    times["init"] = time.perf_counter() - t0
+    require(result is not None, "dense initialization failed")
+    n_loc = sum(result.image_used)
+    log(f"[7] dense initialization: {n_loc}/{len(ds.imagesets)} imagesets "
+        f"localized, buffer {result.buffer_size[0]}x{result.buffer_size[1]},"
+        f" {native.calls['densify_matches']} native densify calls, "
+        f"{times['init']:.2f} s (host)")
+    require(native.calls["densify_matches"] > 0,
+            "the native densification did not run")
+    require(n_loc >= 0.9 * len(ds.imagesets),
+            f"only {n_loc} imagesets localized")
+
+    full = cal.compute_grid_resolution(*ds.image_sizes[0], 25)
+    coarse = cal.grid_resolution_for_level(2, *full)
+    t0 = time.perf_counter()
+    state, data, fid, used = build_ba_state(
+        ds, [result], (max(4, coarse[1]), max(4, coarse[0])),
+        dtype=torch.float32, device=dev)
+    sync()
+    times["state"] = time.perf_counter() - t0
+    grid0 = tuple(state.intrinsics[0].grid.shape[:2])
+    log(f"[7] initial state: {grid0[0]}x{grid0[1]} grid, "
+        f"{int(data[0].valid.sum())} observations of "
+        f"{state.points.shape[0]} points in {sum(used)} imagesets, "
+        f"{state.points.dtype} on {state.points.device}, "
+        f"{times['state']:.2f} s (host: the fit on the CPU)")
+    require(state.points.device.type == dev.type
+            and state.points.dtype == torch.float32
+            and state.intrinsics[0].grid.device.type == dev.type,
+            "the initial state is not float32 on the card")
+
+    stages, firsts = [], {}
+
+    def recorded(st, dat, max_iterations, threshold, options, **kw):
+        grid = "x".join(str(v) for v in st.intrinsics[0].grid.shape[:2])
+        if st.points.device.type == dev.type:
+            firsts.setdefault(grid, (st, dat))
+        before = dict(_cuda.launches)
+        sync()
+        t1 = time.perf_counter()
+        out = run_ba(st, dat, max_iterations, threshold, options, **kw)
+        sync()
+        rep = out[1]["report"]
+        stages.append(dict(
+            grid=grid, device=str(st.points.device),
+            dtype=str(st.points.dtype).replace("torch.", ""),
+            max_iterations=max_iterations, threshold=threshold,
+            iterations=rep.iterations, accepted=rep.accepted,
+            seconds=time.perf_counter() - t1, start=t1 - t_cal,
+            initial_cost=rep.initial_cost, final_cost=rep.final_cost,
+            launches={k: _cuda.launches[k] - before.get(k, 0)
+                      for k in _cuda.launches
+                      if _cuda.launches[k] != before.get(k, 0)}))
+        return out
+
+    outlier_pass = {}
+
+    def outliers(st, dat, factor):
+        before = dict(_cuda.launches)
+        sync()
+        t1 = time.perf_counter()
+        out = delete_outliers(st, dat, factor)
+        sync()
+        outlier_pass.update(
+            grid="x".join(str(v) for v in st.intrinsics[0].grid.shape[:2]),
+            seconds=time.perf_counter() - t1, removed=out[1],
+            launches={k: _cuda.launches[k] - before.get(k, 0)
+                      for k in _cuda.launches
+                      if _cuda.launches[k] != before.get(k, 0)})
+        return out
+
+    run_ba, delete_outliers = cal.run_ba, cal.delete_outlier_features
+    options = cal.CalibrateOptions(polish_iterations=10)
+    _cuda.reset_launches()
+    t_cal = time.perf_counter()
+    with mock.patch.object(cal, "run_ba", recorded), \
+            mock.patch.object(cal, "delete_outlier_features", outliers):
+        st_f, data_f, report = cal.calibrate(
+            state, data, options, known_geometries=ds.known_geometries,
+            feature_id_to_point_index=fid, image_used=used,
+            log=lambda *a: log("    " + " ".join(str(x) for x in a)))
+    sync()
+    times["calibrate"] = time.perf_counter() - t_cal
+    totals = dict(_cuda.launches)
+
+    per_grid = {}
+    for st_ in stages:
+        if st_["device"].startswith(dev.type):
+            acc = per_grid.setdefault(st_["grid"], {})
+            for k, v in st_["launches"].items():
+                acc[k] = acc.get(k, 0) + v
+    for k, v in outlier_pass.get("launches", {}).items():
+        acc = per_grid.setdefault(outlier_pass["grid"], {})
+        acc[k] = acc.get(k, 0) + v
+    names = ["pyramid BA (10 it @ 1e-4)", "pyramid BA (50 it @ 1)"] * 2 + [
+        "outlier-pass BA", "final BA", "float64 polish"]
+    for i, st_ in enumerate(stages):
+        label = names[i] if i < len(names) else f"stage {i}"
+        log(f"[7] {label} at {st_['grid']} ({st_['dtype']} on "
+            f"{st_['device']}): {st_['iterations']} LM iterations "
+            f"({st_['accepted']} accepted) in {st_['seconds']:.3f} s = "
+            f"{st_['iterations'] / max(st_['seconds'], 1e-9):.2f} LM it/s, "
+            f"cost {st_['initial_cost']:.6g} -> {st_['final_cost']:.6g}; "
+            f"launches {json.dumps(st_['launches'], sort_keys=True)} on {smi}")
+    starts = [st_["start"] for st_ in stages] + [times["calibrate"]]
+    for lv, i in ((2, 0), (1, 2)):
+        log(f"[7] pyramid level {lv} ({stages[i]['grid']}): "
+            f"{starts[i + 2] - starts[i]:.3f} s (host, both BAs and the "
+            f"resample)")
+    log(f"[7] outlier pass at {outlier_pass['grid']}: removed "
+        f"{outlier_pass['removed']} in {outlier_pass['seconds']:.3f} s; "
+        f"launches {json.dumps(outlier_pass['launches'], sort_keys=True)}")
+    log(f"[7] launches per grid: {json.dumps(per_grid, sort_keys=True)}; "
+        f"total {json.dumps(totals, sort_keys=True)}")
+    shown = {k: v for k, v in report.items() if k not in ("solver",
+                                                         "pyramid")}
+    log(f"[7] report: {json.dumps(shown, sort_keys=True)}")
+    log(f"[7] host times (s): {json.dumps(times, sort_keys=True)} on {smi}")
+
+    final_grid = tuple(st_f.intrinsics[0].grid.shape[:2])
+    require(final_grid == (45, 79), f"final grid {final_grid}")
+    require(report["reprojection_error_median"] < PIPELINE_MEDIAN_PX,
+            f"median reprojection error {report['reprojection_error_median']}")
+    require(abs(report["scale_factor"] - 1.0) < 0.05,
+            f"scale factor {report['scale_factor']}")
+    require(st_f.points.dtype == torch.float64
+            and st_f.points.device.type == "cpu"
+            and bool(torch.isfinite(st_f.points).all()),
+            "the polished state is not a finite float64 CPU state")
+    require(len(stages) == 7 and stages[-1]["device"] == "cpu"
+            and stages[-1]["launches"] == {},
+            "the polish did not run alone on the CPU")
+    grids = ("25x44", "34x59", "45x79")
+    require(sorted(per_grid) == sorted(grids),
+            f"pipeline grids {sorted(per_grid)}")
+    for grid in grids:
+        for name in PIPELINE_KERNELS:
+            require(per_grid[grid].get(name, 0) > 0,
+                    f"pipeline: kernel {name} never launched at {grid}")
+
+    t0 = time.perf_counter()
+    state_io.save_ba_state(out_dir / "state", st_f, used, fid)
+    require((out_dir / "state" / "intrinsics0.yaml").exists(),
+            "state_io wrote no intrinsics")
+    log(f"[7] state saved to {out_dir / 'state'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # Each kernel against its plain version, and one LM step through the
+    # kernels against the plain step, at the inputs of each pyramid grid's
+    # first BA stage (the observed rows of the grid-layout table).
+    bopts = lm_pcg.BAOptions(solver="schur", proj_iterations=4)
+    for grid, (st0, dat0) in firsts.items():
+        model = st0.intrinsics[0]
+        gh, gw = model.grid.shape[:2]
+        data_g = lm_pcg.maybe_grid_layout(dat0, st0, bopts)
+        seg = data_g[0]
+        d, g0 = problems.bench_projection_inputs(st0, seg)
+        obs = seg.valid
+        checks["project"](model, d[obs].contiguous(), g0[obs].contiguous(),
+                          4, f"pipeline {grid}")
+        checks["blocks"](model, d[obs].contiguous(), g0[obs].contiguous(),
+                         4, f"pipeline {grid}")
+        blocks, _ = lm_pcg.compute_blocks(data_g, st0, (seg.pixel,), bopts)
+        b = blocks[0]
+        checks["window"](b.intr.j_win, b.intr.base_xy, gh, gw, 2,
+                         f"pipeline {grid}, {b.intr.j_win.shape[1]} rows",
+                         w=b.weight)
+        warm = tuple(s_.pixel for s_ in data_g)
+        lam = torch.tensor(-1.0, dtype=torch.float32, device=dev)
+        out_k = lm_pcg.lm_step(st0, warm, lam, data_g, bopts)
+        with plain_routes(cgc, wc):
+            out_p = lm_pcg.lm_step(st0, warm, lam, data_g, bopts)
+        cost_k, cost_p = float(out_k[5]), float(out_p[5])
+        cost_rel = abs(cost_k - cost_p) / max(abs(cost_p), 1e-30)
+        pts_rel = float((out_k[0].points - out_p[0].points).abs().max()) / \
+            float(out_p[0].points.abs().max())
+        n_obs = int(obs.sum())
+        rms_k, rms_p = ((2.0 * c / n_obs) ** 0.5 for c in (cost_k, cost_p))
+        log(f"    one LM step at the pipeline's {grid} state, kernels vs "
+            f"plain: new cost {cost_k:.6g} vs {cost_p:.6g} (rel "
+            f"{cost_rel:.3e}; RMS residual {rms_k:.4e} vs {rms_p:.4e} px, "
+            f"|Δ| {abs(rms_k - rms_p):.3e} px), "
+            f"points max|Δ|/scale {pts_rel:.3e}")
+        # Near convergence the residuals are ~1e-3 px, where the kernels'
+        # float32 projections (held to PROJ_PX_TOL above) move the cost by
+        # ~0.1% relative: the step's points are held to STEP_REL_TOL and
+        # its cost as an RMS residual, to PIPELINE_STEP_RMS_PX.
+        require(pts_rel <= STEP_REL_TOL
+                and abs(rms_k - rms_p) <= PIPELINE_STEP_RMS_PX,
+                f"pipeline {grid}: the LM step through the kernels "
+                "disagrees with the plain step")
+    log(f"[7] pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
+    return {"launches": per_grid, "report": report, "times": times,
+            "stages": stages}
 
 
 def sparse_intrinsics_jacobian(torch, j_win, base, gh, gw, k):

@@ -15,6 +15,12 @@ bit-identical results.  The two matvec kernels also read a bfloat16 j_win
 same bf16 values, with N odd, even but not a multiple of 8, and a j_win
 view that is not 4-byte aligned (the kernels' three staging paths).
 
+The calibration pipeline (dense initialization, ``build_ba_state``,
+``calibrate``) runs on the small dataset of ``tests/test_e2e.py`` in
+float32 on the card and on the CPU: the same outliers, medians within 1e-3
+px.  The native densification builds with ``g++`` into ``_build/`` and
+loads.
+
 Tolerances: the window kernels to 1e-4 of the largest value of a float64
 plain reference (the reference package's bar for its TPU kernels); the
 projection kernels to 1e-3 px on points valid in both versions, with at
@@ -576,3 +582,70 @@ def test_noncentral_lm_step_through_kernels_matches_plain(card, monkeypatch):
         hist = info["history"]
         assert hist[0]["accepted"]
         assert hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]
+
+
+def _small_pipeline_inputs():
+    """The feature dataset and dense initialization of ``tests/test_e2e.py``
+    (10 views of a 12×12 board by a 320×240 camera)."""
+    from camera_calibration_torch.init.dense_init import (
+        DenseInitializer, DenseInitOptions,
+    )
+
+    ds, _, _ = problems.make_calibration_dataset(seed=2, n_imagesets=10,
+                                                 k=12, w=320, h=240)
+    result = DenseInitializer(ds, 0, DenseInitOptions(
+        max_initialization_attempts=100, seed=3,
+        min_matched_area_accept=0.15)).run()
+    return ds, result
+
+
+def _small_pipeline(ds, result, device):
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch.init.state_init import build_ba_state
+
+    state, data, fid, _ = build_ba_state(ds, [result], (6, 6),
+                                         dtype=torch.float32, device=device)
+    options = cal.CalibrateOptions(
+        num_pyramid_levels=2, approx_pixels_per_cell=40,
+        outlier_removal_factor=8.0, final_iterations=30,
+        pyramid_iterations=(8, 25))
+    return cal.calibrate(state, data, options,
+                         known_geometries=ds.known_geometries,
+                         feature_id_to_point_index=fid, log=lambda *a: None)
+
+
+def test_calibrate_on_the_card_matches_the_cpu(card):
+    """The whole pipeline in float32 on the card (through the kernels) and
+    on the CPU (the plain versions): the same outliers, medians within
+    1e-3 px, both under the 0.02 px gate."""
+    ds, result = _small_pipeline_inputs()
+    _cuda.reset_launches()
+    st_k, _, rep_k = _small_pipeline(ds, result, card)
+    launched = dict(_cuda.launches)
+    st_c, _, rep_c = _small_pipeline(ds, result, "cpu")
+    assert st_k.points.device.type == "cuda"
+    assert st_k.points.dtype == torch.float32
+    for name in ("project", "project_blocks", "window_apply_jtw",
+                 "window_block_diag"):
+        assert launched.get(name, 0) > 0, (name, launched)
+    assert rep_k["outliers_removed"] == rep_c["outliers_removed"]
+    assert abs(rep_k["reprojection_error_median"]
+               - rep_c["reprojection_error_median"]) <= 1e-3
+    assert rep_k["reprojection_error_median"] < 0.02, rep_k
+
+
+def test_native_densify_builds_and_loads(card):
+    from camera_calibration_torch import native
+
+    so = native.build()
+    assert so.exists() and so.parent.parent == native.BUILD_ROOT
+    native.lib()
+    native.reset_calls()
+    pts = np.full((4, 4, 3), np.nan)
+    valid = np.zeros((4, 4), np.uint8)
+    corners = np.array([[[0.0, 0.0], [4.0, 0.0], [4.0, 4.0], [0.0, 4.0]]])
+    n = native.densify_matches_native(corners, np.array([[0, 0]]), 0.5,
+                                      np.eye(3), np.zeros(3), 4, 4, 1.0, 1.0,
+                                      pts, valid)
+    assert n == 16 and valid.all() and native.calls["densify_matches"] == 1
+    np.testing.assert_allclose(pts[0, 0], [0.0625, 0.0625, 0.0])
