@@ -71,6 +71,11 @@ SIGNATURES = {
     "cct_project_blocks_per_sm": [_I, _I, _I],
     "cct_project_threads": [_I, _I, _I],
     "cct_project_smem_bytes": [_I, _I, _I],
+    # blocks, gh, gw: 1 where the kernel stages its fields in shared memory,
+    # 0 where it reads them from device memory
+    "cct_project_staged": [_I, _I, _I],
+    # k, gh, gw: the same for cct_window_apply_j's tangent
+    "cct_window_apply_j_staged": [_I, _I, _I],
     # k, gh, gw, elem_bytes: blocks of the reduction's partial pass that
     # fit on one SM
     "cct_window_apply_jtw_blocks_per_sm": [_I, _I, _I, _I],

@@ -141,6 +141,14 @@ def _resident_blocks(name, k, gh, gw, device_index, elem_bytes=4):
     return per_sm
 
 
+def apply_j_staged(gh: int, gw: int, k: int) -> bool:
+    """Whether :func:`window_apply_j`'s kernel stages the (gh, gw, K)
+    tangent in shared memory (``cct_window_apply_j_staged``): where it fits
+    one block.  Elsewhere the same kernel (``kStaged = false``) reads it
+    from device memory."""
+    return 4 * gh * gw * k <= _cuda.MAX_SMEM_BYTES
+
+
 # ------------------------------ plain versions ------------------------------
 
 
@@ -234,7 +242,6 @@ def window_apply_j(j_win, base_xy, tangent):
     gh, gw, k = tangent.shape
     n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, tangent=tangent)
-    _cuda.check_smem(gh * gw * k * 4, name)
     out = torch.empty((n, 2), dtype=torch.float32, device=j_win.device)
     if n:
         elem = j_win.element_size()

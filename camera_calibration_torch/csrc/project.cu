@@ -1,4 +1,4 @@
-// CentralGeneric projection kernels: project_kernel<kBlocks, kThreads>.
+// CentralGeneric projection kernels: project_kernel<kBlocks, kThreads, kStaged>.
 //
 // Replaces the two Pallas projection kernels of the reference package,
 // camera_calibration_tpu/models/central_generic_pallas.py:
@@ -40,6 +40,14 @@
 //   in shared memory as packed 12-byte knots; the 16 taps are straight-line
 //   code, each reading a clamped index with its weight zeroed outside the
 //   grid.
+// - Where the staged fields do not fit one block's 227 KB (project above
+//   19,370 knots, e.g. 140x140; project_blocks above 6,456, e.g. the 84x100
+//   grid of a 2448x2048 camera at 25 px a cell), the same kernel runs with
+//   kStaged = false: the taps read the (gh, gw, 3) arrays, whose layout is
+//   the staged one, straight from device memory through the read-only
+//   path.  300 KB of fields stay resident in the 50 MB L2, so the taps hit
+//   L2 instead of shared memory; the launch then takes no dynamic shared
+//   memory and blocks of 256 threads.
 // - Persistent blocks: as many as are resident on the card, each staging
 //   once and walking tiles of kThreads points with a stride; the warps of a
 //   block do not wait for each other after the staging, so one warp's
@@ -48,7 +56,7 @@
 //   registers a thread, 32 warps an SM.
 // Outputs are written row-major (rows, N) with N contiguous, so the stores
 // of a warp coalesce.  No grid size is built in: shared memory is sized
-// from (gh, gw) at launch, and the wrapper refuses sizes above 227 KB.
+// from (gh, gw) at launch, and no grid is refused for its size.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,16 +69,27 @@ constexpr size_t kMaxSmemBytes = 232448;
 constexpr size_t kSmSmemBytes = 233472;
 constexpr size_t kBlockReservedBytes = 1024;
 
-// Shared memory of one block: the grid and, for the blocks form, the two
-// frame fields, 12 bytes a knot each.  Mirrored by project_smem_bytes in
-// models/central_generic_cuda.py.
-inline size_t smem_bytes(bool blocks, int gh, int gw) {
+// Bytes of the staged fields: the grid and, for the blocks form, the two
+// frame fields, 12 bytes a knot each.
+inline size_t staged_bytes(bool blocks, int gh, int gw) {
   return (blocks ? 36 : 12) * static_cast<size_t>(gh) * gw;
 }
 
+// Whether the fields are staged in shared memory (they fit one block).
+// Mirrored by project_staged in models/central_generic_cuda.py.
+inline bool staged(bool blocks, int gh, int gw) {
+  return staged_bytes(blocks, gh, gw) <= kMaxSmemBytes;
+}
+
+// Dynamic shared memory of one block: the staged fields, or none.
+// Mirrored by project_smem_bytes in models/central_generic_cuda.py.
+inline size_t smem_bytes(bool blocks, int gh, int gw) {
+  return staged(blocks, gh, gw) ? staged_bytes(blocks, gh, gw) : 0;
+}
+
 // Threads per block: 256 where four such blocks fit in one SM's shared
-// memory, else 1024, so that an SM holds 32 warps either way.  Mirrored by
-// threads() in models/central_generic_cuda.py.
+// memory (always, unstaged), else 1024, so that an SM holds 32 warps either
+// way.  Mirrored by threads() in models/central_generic_cuda.py.
 inline int threads_per_block(bool blocks, int gh, int gw) {
   return 4 * (smem_bytes(blocks, gh, gw) + kBlockReservedBytes) <=
                  kSmSmemBytes
@@ -133,6 +152,14 @@ __device__ __forceinline__ float rsqrt_approx(float x) {
   return y;
 }
 
+// One value of a field: from shared memory when staged, else from device
+// memory through the read-only (non-coherent) path.
+template <bool kStaged>
+__device__ __forceinline__ float field(const float* __restrict__ p) {
+  if (kStaged) return *p;
+  return __ldg(p);
+}
+
 // floor(g) held to a range where every window knot is outside the grid
 // (NaN maps to one end), so the integer conversion is always defined.
 __device__ __forceinline__ float safe_floor(float g) {
@@ -161,6 +188,7 @@ __device__ __forceinline__ void copy_to_smem(float* dst,
 // Surface value u and its derivatives du/dgx, du/dgy at grid coords
 // (gx, gy).  Each tap reads a knot index clamped into the grid; the weights
 // of taps outside it are 0.
+template <bool kStaged>
 __device__ __forceinline__ void eval_surface(const float* __restrict__ sgrid,
                                              int gh, int gw, float gx,
                                              float gy, float u[3],
@@ -194,8 +222,9 @@ __device__ __forceinline__ void eval_surface(const float* __restrict__ sgrid,
       const float* k = sgrid + 3 * (oy[y] + ox[x]);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        row[c] += wx[x] * k[c];
-        drow[c] += dwx[x] * k[c];
+        const float kc = field<kStaged>(k + c);
+        row[c] += wx[x] * kc;
+        drow[c] += dwx[x] * kc;
       }
     }
 #pragma unroll
@@ -214,11 +243,12 @@ struct State {
   float n[3], jx[3], jy[3], inv, cost;
 };
 
+template <bool kStaged>
 __device__ __forceinline__ State state_at(const float* __restrict__ sgrid,
                                           int gh, int gw, float gx, float gy,
                                           const float d[3]) {
   float u[3], dux[3], duy[3];
-  eval_surface(sgrid, gh, gw, gx, gy, u, dux, duy);
+  eval_surface<kStaged>(sgrid, gh, gw, gx, gy, u, dux, duy);
   State s;
   s.inv = rsqrt_approx(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
 #pragma unroll
@@ -238,10 +268,13 @@ __device__ __forceinline__ State state_at(const float* __restrict__ sgrid,
 
 // Everything for point n.  The loop evaluates the surface once per
 // iteration, at the test point: on accept that state is the next
-// iteration's, on reject the current one stays.
-template <bool kBlocks>
+// iteration's, on reject the current one stays.  sgrid, st1 and st2 are the
+// staged fields (kStaged) or the arguments' own.
+template <bool kBlocks, bool kStaged>
 __device__ __forceinline__ void project_point(const Args a,
                                               const float* __restrict__ sgrid,
+                                              const float* __restrict__ st1,
+                                              const float* __restrict__ st2,
                                               int n) {
   const int gh = a.gh, gw = a.gw;
   const size_t N = static_cast<size_t>(a.n), idx = static_cast<size_t>(n);
@@ -250,7 +283,7 @@ __device__ __forceinline__ void project_point(const Args a,
   float gx = a.g0[2 * idx], gy = a.g0[2 * idx + 1];
   float lam = -1.0f;
   int rejects = 0;
-  State s = state_at(sgrid, gh, gw, gx, gy, d);
+  State s = state_at<kStaged>(sgrid, gh, gw, gx, gy, d);
 
   for (int it = 0; it < a.iters; ++it) {
     float b0 = 0.0f, b1 = 0.0f, h00 = 0.0f, h11 = 0.0f, h01 = 0.0f;
@@ -271,7 +304,7 @@ __device__ __forceinline__ void project_point(const Args a,
     const float s1 = (a00 * b1 - h01 * b0) * inv_det;
     const float tx = fminf(fmaxf(gx - s0, a.lo_x), a.hi_x);
     const float ty = fminf(fmaxf(gy - s1, a.lo_y), a.hi_y);
-    const State t = state_at(sgrid, gh, gw, tx, ty, d);
+    const State t = state_at<kStaged>(sgrid, gh, gw, tx, ty, d);
     const float cost = s.cost;
     if (t.cost < cost) {
       gx = tx;
@@ -320,8 +353,6 @@ __device__ __forceinline__ void project_point(const Args a,
   float wx[4], wy[4];
   cubic_weights(gx - fx, wx);
   cubic_weights(gy - fy, wy);
-  const float* st1 = sgrid + 3 * gh * gw;
-  const float* st2 = st1 + 3 * gh * gw;
 #pragma unroll
   for (int y = 0; y < 4; ++y) {
     const int ky = by + y;
@@ -335,8 +366,8 @@ __device__ __forceinline__ void project_point(const Args a,
       float f1[3], f2[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        f1[c] = st1[k + c];
-        f2[c] = st2[k + c];
+        f1[c] = field<kStaged>(st1 + k + c);
+        f2[c] = field<kStaged>(st2 + k + c);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -350,41 +381,50 @@ __device__ __forceinline__ void project_point(const Args a,
   }
 }
 
-// Persistent blocks: each stages the grid (and the frames) once, then takes
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ... of kThreads points.
-// Registers are held to 64 a thread, so that an SM holds 32 warps.
-template <bool kBlocks, int kThreads>
+// Persistent blocks: each stages the grid (and the frames) once, unless
+// kStaged is false, then takes tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// of kThreads points.  Registers are held to 64 a thread, so that an SM
+// holds 32 warps.
+template <bool kBlocks, int kThreads, bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     project_kernel(const Args a) {
   extern __shared__ __align__(16) float sgrid[];
   const int cells3 = 3 * a.gh * a.gw;
-  copy_to_smem(sgrid, a.grid, cells3);
-  if (kBlocks) {
-    copy_to_smem(sgrid + cells3, a.t1, cells3);
-    copy_to_smem(sgrid + 2 * cells3, a.t2, cells3);
+  const float* grid = a.grid;
+  const float* t1 = a.t1;
+  const float* t2 = a.t2;
+  if (kStaged) {
+    copy_to_smem(sgrid, a.grid, cells3);
+    grid = sgrid;
+    if (kBlocks) {
+      copy_to_smem(sgrid + cells3, a.t1, cells3);
+      copy_to_smem(sgrid + 2 * cells3, a.t2, cells3);
+      t1 = sgrid + cells3;
+      t2 = sgrid + 2 * cells3;
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long n = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        n < a.n; n += stride)
-    project_point<kBlocks>(a, sgrid, static_cast<int>(n));
+    project_point<kBlocks, kStaged>(a, grid, t1, t2, static_cast<int>(n));
 }
 
 // Sets the kernel's shared-memory size and returns its resident blocks per
 // SM (0 if none fits).
-template <bool kBlocks, int kThreads>
+template <bool kBlocks, int kThreads, bool kStaged>
 int resident_blocks(size_t smem) {
   if (smem > kMaxSmemBytes) return 0;
   if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(project_kernel<kBlocks, kThreads>,
+      cudaFuncSetAttribute(project_kernel<kBlocks, kThreads, kStaged>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, project_kernel<kBlocks, kThreads>, kThreads, smem) !=
-      cudaSuccess)
+          &blocks, project_kernel<kBlocks, kThreads, kStaged>, kThreads,
+          smem) != cudaSuccess)
     return 0;
   return blocks;
 }
@@ -392,9 +432,11 @@ int resident_blocks(size_t smem) {
 template <bool kBlocks>
 int blocks_per_sm(int gh, int gw) {
   const size_t smem = smem_bytes(kBlocks, gh, gw);
+  if (!staged(kBlocks, gh, gw))
+    return resident_blocks<kBlocks, 256, false>(0);
   return threads_per_block(kBlocks, gh, gw) == 256
-             ? resident_blocks<kBlocks, 256>(smem)
-             : resident_blocks<kBlocks, 1024>(smem);
+             ? resident_blocks<kBlocks, 256, true>(smem)
+             : resident_blocks<kBlocks, 1024, true>(smem);
 }
 
 // The persistent grid: at most the blocks resident on the card at once, and
@@ -419,10 +461,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(kBlocks, a.gh, a.gw);
   const int threads = threads_per_block(kBlocks, a.gh, a.gw);
   const int blocks = persistent_blocks(a.n, threads, per_sm, sms);
-  if (threads == 256)
-    project_kernel<kBlocks, 256><<<blocks, 256, smem, stream>>>(a);
+  if (!staged(kBlocks, a.gh, a.gw))
+    project_kernel<kBlocks, 256, false><<<blocks, 256, 0, stream>>>(a);
+  else if (threads == 256)
+    project_kernel<kBlocks, 256, true><<<blocks, 256, smem, stream>>>(a);
   else
-    project_kernel<kBlocks, 1024><<<blocks, 1024, smem, stream>>>(a);
+    project_kernel<kBlocks, 1024, true><<<blocks, 1024, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -471,8 +515,16 @@ extern "C" int cct_project_threads(int blocks, int gh, int gw) {
   return threads_per_block(blocks != 0, gh, gw);
 }
 
-// Shared memory of one block of cct_project (blocks = 0) or
-// cct_project_blocks (blocks = 1) at this grid.
+// Dynamic shared memory of one block of cct_project (blocks = 0) or
+// cct_project_blocks (blocks = 1) at this grid (0 where the fields are read
+// from device memory).
 extern "C" long long cct_project_smem_bytes(int blocks, int gh, int gw) {
   return static_cast<long long>(smem_bytes(blocks != 0, gh, gw));
+}
+
+// Whether cct_project (blocks = 0) or cct_project_blocks (blocks = 1) stages
+// its fields in shared memory at this grid (1) or reads them from device
+// memory (0).
+extern "C" int cct_project_staged(int blocks, int gh, int gw) {
+  return staged(blocks != 0, gh, gw) ? 1 : 0;
 }

@@ -37,17 +37,31 @@ SM_SMEM_BYTES = 233_472
 BLOCK_RESERVED_BYTES = 1024
 
 
-def project_smem_bytes(gh: int, gw: int, blocks: bool = False) -> int:
-    """Shared memory of one block of ``project_kernel<blocks>``
-    (``cct_project_smem_bytes``): the grid and, for the blocks form, both
-    frame fields, as packed 12-byte knots."""
+def staged_bytes(gh: int, gw: int, blocks: bool = False) -> int:
+    """Bytes of the fields ``project_kernel<blocks>`` stages: the grid and,
+    for the blocks form, both frame fields, as packed 12-byte knots."""
     return (36 if blocks else 12) * gh * gw
+
+
+def project_staged(gh: int, gw: int, blocks: bool = False) -> bool:
+    """Whether the kernel stages its fields in shared memory at this grid
+    (``cct_project_staged``): where they fit one block.  Elsewhere the same
+    kernel (``kStaged = false``) reads them from device memory."""
+    return staged_bytes(gh, gw, blocks) <= _cuda.MAX_SMEM_BYTES
+
+
+def project_smem_bytes(gh: int, gw: int, blocks: bool = False) -> int:
+    """Dynamic shared memory of one block of ``project_kernel<blocks>``
+    (``cct_project_smem_bytes``): the staged fields, or 0 where they are
+    read from device memory."""
+    return staged_bytes(gh, gw, blocks) if project_staged(gh, gw, blocks) \
+        else 0
 
 
 def threads(gh: int, gw: int, blocks: bool = False) -> int:
     """Threads per block of ``project_kernel<blocks>`` at this grid, one
     point each (``threads_per_block``): 256 where four such blocks fit in
-    one SM's shared memory, else 1024."""
+    one SM's shared memory (always, unstaged), else 1024."""
     need = 4 * (project_smem_bytes(gh, gw, blocks) + BLOCK_RESERVED_BYTES)
     return 256 if need <= SM_SMEM_BYTES else 1024
 
@@ -215,7 +229,6 @@ def project_grid_coords(grid, dirs, g0, lo, hi, max_iterations, eps):
     _cuda.require_cuda_f32(name, grid=grid, dirs=dirs, g0=g0)
     n = _check_shapes(name, grid, dirs, g0)
     gh, gw = grid.shape[:2]
-    _cuda.check_smem(project_smem_bytes(gh, gw), name)
     g_out = torch.empty((2, n), dtype=torch.float32, device=dirs.device)
     cost = torch.empty((n,), dtype=torch.float32, device=dirs.device)
     if n:
@@ -242,7 +255,6 @@ def project_blocks(grid, t1, t2, dirs, g0, lo, hi, inv_scale, max_iterations,
     if t1.shape != grid.shape or t2.shape != grid.shape:
         raise ValueError(f"{name}: frames must have the grid's shape")
     gh, gw = grid.shape[:2]
-    _cuda.check_smem(project_smem_bytes(gh, gw, blocks=True), name)
     dev = dirs.device
     g_out = torch.empty((2, n), dtype=torch.float32, device=dev)
     cost = torch.empty((n,), dtype=torch.float32, device=dev)

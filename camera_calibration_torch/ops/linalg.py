@@ -103,3 +103,39 @@ def inv_spd_blocks(a):
     if k == 6:
         return inv_spd_6x6(a)
     return torch.linalg.inv(a)
+
+
+def cholesky_solve_small(a, b):
+    """Batched SPD solve for a small k by Cholesky: a (..., k, k), b (..., k).
+
+    The counterpart of the reference package's ``cholesky_solve_small``,
+    with its arithmetic: each pivot is ``sqrt(max(s, 1e-30))``, and the
+    factor's columns and both triangular solves divide by multiplying with
+    the pivot's reciprocal.  Where that function unrolls ~k³/3 scalar ops,
+    this one loops over the k columns with each column's dot products
+    vectorised over the batch (a few launches a column), so an 8×8 solve
+    costs tens of launches and not hundreds.
+    """
+    k = a.shape[-1]
+    lower = torch.zeros_like(a)
+    inv_d = torch.zeros_like(b)
+    for j in range(k):
+        lj = lower[..., j, :j]
+        d = torch.sqrt(torch.clamp(
+            a[..., j, j] - torch.sum(lj * lj, dim=-1), min=1e-30))
+        lower[..., j, j] = d
+        inv_d[..., j] = 1.0 / d
+        if j + 1 < k:
+            below = a[..., j + 1:, j] - torch.einsum(
+                "...ip,...p->...i", lower[..., j + 1:, :j], lj)
+            lower[..., j + 1:, j] = below * inv_d[..., j, None]
+    y = torch.zeros_like(b)
+    for i in range(k):
+        s = b[..., i] - torch.sum(lower[..., i, :i] * y[..., :i], dim=-1)
+        y[..., i] = s * inv_d[..., i]
+    x = torch.zeros_like(b)
+    for i in reversed(range(k)):
+        s = y[..., i] - torch.sum(lower[..., i + 1:, i] * x[..., i + 1:],
+                                  dim=-1)
+        x[..., i] = s * inv_d[..., i]
+    return x

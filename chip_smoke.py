@@ -9,9 +9,10 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
 1. prints the card's name and power limit;
 2. builds the hand-written kernels from ``camera_calibration_torch/csrc``
    and prints what ``ptxas -v`` says of each (registers, shared memory,
-   spills), and the shared memory, block size, blocks per SM and
-   persistent grid of both projection kernels at the bench grid and at
-   45×79;
+   spills), and the staged-or-not plan, shared memory, block size,
+   blocks per SM and persistent grid of both projection kernels at the
+   bench grid, at 45×79 and at 84×100, and the plan of ``window_apply_j``
+   at K = 5 on 45×79 and 108×108;
 3. holds every kernel against its plain PyTorch version on the card, at the
    shapes of the benchmark problem's main path (262,144 observations, 16×16
    grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera
@@ -22,7 +23,12 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    two matvec kernels on a bfloat16 ``j_win`` (the CG matvecs' copies):
    the central and noncentral bench ``j_win``, random 45×79 inputs at K = 2
    and 5, N odd, even but not a multiple of 8, and a view that is not
-   4-byte aligned; bf16 JᵀW·s in narrower bands bit for bit;
+   4-byte aligned; bf16 JᵀW·s in narrower bands bit for bit; and the
+   kernels past their staged plans: ``project_blocks`` at the 84×100 grid
+   of a 2448×2048 camera (262,144 random pixels; it reads its grid and
+   frames from device memory there, while ``project`` still stages its
+   grid) and ``window_apply_j`` at K = 5 on a 108×108 grid (tangent read
+   from device memory), each printing which variant ran;
 4. drives the main paths, each with the launch counts set to 0 just before
    and read just after: ``optimize`` on the full-size benchmark problem in
    the two-pass and cached-blocks forms, with ``solver="auto"`` (it
@@ -50,7 +56,9 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    window kernels also at K = 5 on the noncentral bench's ``j_win``, the
    two reductions also at K = 5 and K = 2 at 45×79 (with a torch.sparse
    JᵀW·s beside them, and at K = 5 also in twice the bands, which is what
-   a band costs), the two projections also at 45×79; the two bf16 matvec
+   a band costs), the two projections also at 45×79 and 84×100 and
+   ``window_apply_j`` at K = 5 on 108×108 (the rows' ``past_the_staged_plan``);
+   the two bf16 matvec
    kernels at K = 2 and 5 (with a torch.sparse product of the same bf16
    matrix where torch.sparse takes one); the LM iterations per second of
    both step forms, of each solver mode, of the noncentral path, of each
@@ -74,9 +82,26 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    and the launches per grid; and holds each kernel to its plain version
    and one LM step through the kernels to the plain step at the inputs of
    each grid's first BA stage;
-8. prints one JSON line listing every kernel (with its launches per
-   pipeline grid), the ``nvidia-smi`` line of the card, and last
-   ``{"ok": true, "device": {...}}``.
+8. calibrates from camera images through the port's own entry points:
+   ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with its
+   central tag), render-synthetic (30 seeded 1920×1080 views by the camera
+   of [7], 0.6–0.9 m away, noise 0.01, defocus σ 0.8 px) and
+   extract-features (detection on the card), then the steps of [7] on the
+   dataset it wrote.  It requires every view to detect at least 70% of the
+   corners its true pose puts inside the image, the detected corners'
+   median distance to the rendered truth under 0.1 px, the first
+   refinement batch within 1e-3 px (95% of its features; median 1e-4 px,
+   all 1e-2 px) of the same batch refined in float64 on the CPU, the
+   calibration's median reprojection error under 0.1 px, its
+   scale within 0.05 of 1 and every kernel at each pyramid grid; it prints
+   the host seconds of each stage, the features per view and the corner
+   refinement throughput at the reference benchmark's shape (2048
+   features, 512 + 64 samples, a 1280×1024 image, best of 3), with a
+   ``torch.profiler`` reading of one such call (device busy share,
+   launches, the kernels that take the most time);
+9. prints one JSON line listing every kernel (with its launches per
+   pipeline grid of [7] and of [8]), the ``nvidia-smi`` line of the card,
+   and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA card, when
 the package is missing, or when any phase fails.
@@ -119,6 +144,14 @@ STEP_REL_TOL = 1e-3
 # Points of the 1080p projection case ([3], [5]): as many as the bench rows.
 N_PROJECTION = 262_144
 
+# Grids past one block's shared memory ([3], [5]): the 84×100 grid of a
+# 2448×2048 camera at 25 px a cell, where project_blocks reads its grid and
+# frames from device memory (project still stages its grid), and the K=5
+# tangent of window_apply_j at 108×108.
+MP5_CAMERA = (2448, 2048)
+MP5_GRID = (84, 100)
+K5_UNSTAGED_GRID = (108, 108)
+
 # The calibration pipeline ([7]): a 1920×1080 pinhole camera and 100 views
 # of a 24×24 board of 2 cm squares, calibrated with the command line's
 # defaults (3 pyramid levels at 25 px per cell, outlier factor 8, 100 final
@@ -133,6 +166,32 @@ PIPELINE_MEDIAN_PX = 0.02
 PIPELINE_STEP_RMS_PX = 5e-6
 PIPELINE_KERNELS = ("project", "project_blocks", "window_apply_j",
                     "window_apply_jtw", "window_block_diag")
+
+# Calibration from images ([8]): 30 rendered views of a 24×24 board by the
+# camera of [7], at depths that keep most of the board in view (fx =
+# 0.85·1920 px), with sensor noise and a defocus blur.  The bars: at least
+# 70% of the corners inside the image detected in every view; the
+# detector's median distance to the rendered truth under 0.1 px (the
+# reference package's bar for a noisy board, tests/test_detector.py); one
+# refinement batch on the card in float32 against float64 on the CPU: the
+# same converged flags but for 1%, the positions' median gap within 1e-4
+# px, 95% of them within 1e-3 px and all within 1e-2 px (float64 keeps
+# accepting LM steps along the symmetry cost's flat valleys that float32
+# cannot resolve, a few 1e-3 px on the worst features of a CPU float32
+# rehearsal; a float64 solve or float64 sample coordinates do not change
+# that); the calibration's median reprojection error under 0.1 px (the
+# reference package's end-to-end bar, tests/test_stress_e2e.py).
+IMAGE_TAG = "[8]"
+IMAGE_VIEWS = 30
+IMAGE_SEED = 8
+IMAGE_MIN_Z, IMAGE_MAX_Z = 0.6, 0.9
+IMAGE_NOISE, IMAGE_DEFOCUS = 0.01, 0.8
+IMAGE_MIN_DETECTED = 0.7
+IMAGE_MEDIAN_TRUTH_PX = 0.1
+IMAGE_RING_MEDIAN_PX = 1e-4
+IMAGE_RING_PX = 1e-3
+IMAGE_RING_MAX_PX = 1e-2
+IMAGE_MEDIAN_PX = 0.1
 
 
 def log(*args):
@@ -261,15 +320,26 @@ def main() -> int:
     for line in _cuda.build_log().splitlines():
         if line.startswith("==") or "ptxas info" in line or "spill" in line:
             log("    " + line.strip())
-    for gh_, gw_ in ((16, 16), (45, 79)):
+    for gh_, gw_ in ((16, 16), (45, 79), MP5_GRID):
         for blocks in (False, True):
             per_sm, nblocks = cgc.launch_shape(blocks, N_PROJECTION, gh_,
                                                gw_, dev)
+            staged = cgc.project_staged(gh_, gw_, blocks)
+            require(_cuda.lib().cct_project_staged(int(blocks), gh_, gw_)
+                    == int(staged), "the staged plan differs from the C one")
             log(f"[2] {'project_blocks' if blocks else 'project'} at "
-                f"{gh_}x{gw_}: {cgc.project_smem_bytes(gh_, gw_, blocks)} B "
+                f"{gh_}x{gw_}: {'staged' if staged else 'unstaged'}, "
+                f"{cgc.project_smem_bytes(gh_, gw_, blocks)} B "
                 f"shared, {per_sm} blocks of {cgc.threads(gh_, gw_, blocks)} "
                 f"threads per SM, {nblocks} persistent blocks for "
                 f"{N_PROJECTION} points on {_cuda.num_sms(dev)} SMs")
+    for k_, (gh_, gw_) in ((5, (45, 79)), (5, K5_UNSTAGED_GRID)):
+        staged = wc.apply_j_staged(gh_, gw_, k_)
+        require(_cuda.lib().cct_window_apply_j_staged(k_, gh_, gw_)
+                == int(staged), "the staged plan differs from the C one")
+        log(f"[2] window_apply_j K={k_} at {gh_}x{gw_}: "
+            f"{'staged' if staged else 'unstaged'} tangent "
+            f"({gh_ * gw_ * k_ * 4} B)")
     for name, per_knot in (("window_apply_jtw", 5), ("window_block_diag", 15)):
         layout, rows = wc.reduction_plan(45, 79, 5, per_knot)
         log(f"[2] {name} K=5 at 45x79: {'ring' if layout == wc.RING else 'compact'}"
@@ -424,6 +494,36 @@ def main() -> int:
         hd, N_PROJECTION, np.random.default_rng(45))
     check_project(hd, dirs_hd, g0_hd, options.proj_iterations, "1080p 45x79")
     check_blocks(hd, dirs_hd, g0_hd, options.proj_iterations, "1080p 45x79")
+    # A 5 MP camera's grid: project_blocks past its staged plan, project at
+    # 84x100 still staged; the K=5 J.v at 108x108 past its staged tangent.
+    mp5 = problems.pinhole_model(*MP5_CAMERA, MP5_GRID[1], MP5_GRID[0],
+                                 device=dev)
+    dirs_5, g0_5 = problems.pinhole_projection_inputs(
+        mp5, N_PROJECTION, np.random.default_rng(84))
+    require(not cgc.project_staged(*MP5_GRID, blocks=True)
+            and not wc.apply_j_staged(*K5_UNSTAGED_GRID, 5),
+            "the 5 MP cases do not reach the unstaged kernels")
+    label_5 = "5 MP {}x{}".format(*MP5_GRID)
+    for blocks in (False, True):
+        log(f"[3] {'project_blocks' if blocks else 'project'} {label_5}: "
+            f"{'staged' if cgc.project_staged(*MP5_GRID, blocks) else 'unstaged (fields read from device memory)'}")
+    unstaged = {
+        "project": dict(max_abs=check_project(
+            mp5, dirs_5, g0_5, options.proj_iterations, label_5)),
+        "project_blocks": dict(max_abs=check_blocks(
+            mp5, dirs_5, g0_5, options.proj_iterations, label_5)),
+    }
+    hh5, ww5 = K5_UNSTAGED_GRID
+    jw108 = torch.as_tensor(rng.normal(0, 1, (32 * 5, n_obs)),
+                            dtype=torch.float32, device=dev)
+    base108 = torch.as_tensor(
+        np.stack([rng.integers(-3, ww5, n_obs), rng.integers(-3, hh5, n_obs)],
+                 1), dtype=torch.int32, device=dev)
+    log(f"[3] window_apply_j K=5 at {hh5}x{ww5}: unstaged (tangent read "
+        "from device memory); the reductions in bands")
+    errs108 = check_window(jw108, base108, hh5, ww5, 5,
+                           f"random {hh5}x{ww5} K=5")
+    unstaged["window_apply_j_k5"] = dict(max_abs=errs108["window_apply_j"])
     random_windows = {}
     for k, (hh, ww), nn in ((2, (gh2, gw2), n2), (5, (gh2, gw2), n2),
                             (5, (gh, gw), n_obs), (2, (45, 79), n_obs),
@@ -1018,6 +1118,63 @@ def main() -> int:
             f"{float(iters_hd.float().mean()):.3f} LM iterations each) on "
             f"{smi}")
 
+    # The kernels past their staged plans ([3]): project and project_blocks
+    # at the 5 MP grid, J.v at K=5 108x108.
+    lo_5, hi_5 = cg._static_clamp_bounds(mp5)
+    _, iters_5 = cgc.lm_loop_plain(mp5.grid, dirs_5, g0_5, lo_5, hi_5, iters,
+                                   eps)
+    t1_5, t2_5 = (t.contiguous() for t in manifolds.direction_tangents(mp5.grid))
+    sx_5, sy_5 = cg.pixel_scale_to_grid_scale(mp5)
+    blk_5 = (mp5.grid, t1_5, t2_5, dirs_5, g0_5, lo_5, hi_5,
+             (1 / sx_5, 1 / sy_5), iters, eps)
+    tan108 = torch.as_tensor(rng.normal(0, 1, (hh5, ww5, 5)),
+                             dtype=torch.float32, device=dev)
+    inside108 = float(wc._window_index(base108, hh5, ww5)[1].sum())
+    j108_csr, _ = sparse_intrinsics_jacobian(torch, jw108, base108, hh5, ww5,
+                                             5)
+    g5 = MP5_GRID[0] * MP5_GRID[1]
+    for name, fn, plain, lib, work in (
+            ("project",
+             lambda: cgc.project_grid_coords(mp5.grid, dirs_5, g0_5, lo_5,
+                                             hi_5, iters, eps),
+             lambda: cgc.project_grid_coords_plain(mp5.grid, dirs_5, g0_5,
+                                                   lo_5, hi_5, iters, eps),
+             None, projection_work(N_PROJECTION, g5 * 12,
+                                   FLOP_LM_ITERATION * float(iters_5.sum()),
+                                   False)),
+            ("project_blocks", lambda: cgc.project_blocks(*blk_5),
+             lambda: cgc.project_blocks_plain(*blk_5), None,
+             projection_work(N_PROJECTION, g5 * 12,
+                             FLOP_LM_ITERATION * float(iters_5.sum()), True)),
+            ("window_apply_j_k5",
+             lambda: wc.window_apply_j(jw108, base108, tan108),
+             lambda: wc.window_apply_j_plain(jw108, base108, tan108),
+             lambda: (j108_csr @ tan108.reshape(-1, 1)).reshape(n_obs, 2),
+             (jw108.numel() * 4 + n_obs * 2 * 4 + hh5 * ww5 * 5 * 4
+              + n_obs * 2 * 4, 4 * 5 * inside108))):
+        ms = time_ms(torch, fn, reps=100, warmup=5)
+        graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        library_ms = (None if lib is None
+                      else time_ms(torch, lib, reps=100, warmup=5))
+        b_ms, b_by = bound_ms(*work)
+        at = ("{}x{}".format(*MP5_GRID) if name.startswith("project")
+              else "{}x{}".format(*K5_UNSTAGED_GRID))
+        staged = (cgc.project_staged(*MP5_GRID, name == "project_blocks")
+                  if name.startswith("project") else False)
+        lib_txt = ("" if library_ms is None
+                   else f", torch.sparse {library_ms:.4f} ms")
+        log(f"[5] {name} at {at} ({'staged' if staged else 'unstaged'}): "
+            f"{ms:.4f} ms, graph {graph_ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}{lib_txt}) on {smi}")
+        unstaged[name].update(
+            grid=at, staged=staged, ms=ms, graph_ms=graph_ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, max_abs_err=unstaged[name].pop("max_abs"))
+    for row in kernels:
+        if row["name"] in unstaged:
+            row["past_the_staged_plan"] = unstaged[row["name"]]
+
     # LM iterations per second of both step forms, from a fresh perturbation
     # (the kernels are built and warm); no early stop inside the window.
     # The step is bound by the host, whose clock varies from run to run, so
@@ -1121,6 +1278,18 @@ def main() -> int:
                 for grid, counts in pipeline["launches"].items()}
     log(f"[7] whole run {time.perf_counter() - t_start:.1f} s")
 
+    # ------------------------------------ 8. calibration from camera images
+    images = image_pipeline(
+        torch, smi, IMAGE_VIEWS,
+        checks=dict(project=check_project, blocks=check_blocks,
+                    window=check_window))
+    for row in kernels:
+        if row["name"] in PIPELINE_KERNELS:
+            row["image_pipeline_launches"] = {
+                grid: counts.get(row["name"], 0)
+                for grid, counts in images["launches"].items()}
+    log(f"[8] whole run {time.perf_counter() - t_start:.1f} s")
+
     for row in kernels:
         extra = rows_k5.get(row["name"][:-len("_k5")], {}).get("at_45x79")
         if row["name"].endswith("_k5") and extra:
@@ -1143,23 +1312,10 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
     kernel to its plain version at each pyramid grid's own inputs, and one
     LM step per grid through the kernels to the plain step.  Returns the
     launches per grid and the report."""
-    from camera_calibration_torch import _cuda, native, problems
-    from camera_calibration_torch import calibrate as cal
-    from camera_calibration_torch.ba import lm_pcg
-    from camera_calibration_torch.ba import window_cuda as wc
-    from camera_calibration_torch.init.dense_init import (
-        DenseInitializer, DenseInitOptions,
-    )
-    from camera_calibration_torch.init.state_init import build_ba_state
-    from camera_calibration_torch.io import dataset_bin, state_io
-    from camera_calibration_torch.models import central_generic_cuda as cgc
+    from camera_calibration_torch import _cuda, problems
+    from camera_calibration_torch.io import dataset_bin
 
     dev = torch.device("cuda") if device is None else torch.device(device)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
     out_dir = _cuda.BUILD_ROOT / "pipeline"
     out_dir.mkdir(parents=True, exist_ok=True)
     times = {}
@@ -1177,6 +1333,32 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
         f"{ds.image_sizes[0][0]}x{ds.image_sizes[0][1]} camera, {n_features} "
         f"features, written to and read from dataset.bin "
         f"({path.stat().st_size} bytes) in {times['dataset']:.2f} s")
+    return calibrate_dataset(torch, smi, ds, checks, dev, out_dir, "[7]",
+                             PIPELINE_MEDIAN_PX, times)
+
+
+def calibrate_dataset(torch, smi, ds, checks, dev, out_dir, tag, median_px,
+                      times):
+    """Dense initialization, the initial state on ``dev`` at the coarsest
+    pyramid grid (float32) and ``calibrate`` of a feature dataset of a
+    1920×1080 camera, as the command line runs them, then the state saved
+    under ``out_dir``; the checks of :func:`calibration_pipeline`, with the
+    median reprojection error held under ``median_px``.  Log lines start
+    with ``tag``; host times are added to ``times``."""
+    from camera_calibration_torch import _cuda, native, problems
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.ba import window_cuda as wc
+    from camera_calibration_torch.init.dense_init import (
+        DenseInitializer, DenseInitOptions,
+    )
+    from camera_calibration_torch.init.state_init import build_ba_state
+    from camera_calibration_torch.io import state_io
+    from camera_calibration_torch.models import central_generic_cuda as cgc
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
 
     native.reset_calls()
     t0 = time.perf_counter()
@@ -1184,7 +1366,7 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
     times["init"] = time.perf_counter() - t0
     require(result is not None, "dense initialization failed")
     n_loc = sum(result.image_used)
-    log(f"[7] dense initialization: {n_loc}/{len(ds.imagesets)} imagesets "
+    log(f"{tag} dense initialization: {n_loc}/{len(ds.imagesets)} imagesets "
         f"localized, buffer {result.buffer_size[0]}x{result.buffer_size[1]},"
         f" {native.calls['densify_matches']} native densify calls, "
         f"{times['init']:.2f} s (host)")
@@ -1202,7 +1384,7 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
     sync()
     times["state"] = time.perf_counter() - t0
     grid0 = tuple(state.intrinsics[0].grid.shape[:2])
-    log(f"[7] initial state: {grid0[0]}x{grid0[1]} grid, "
+    log(f"{tag} initial state: {grid0[0]}x{grid0[1]} grid, "
         f"{int(data[0].valid.sum())} observations of "
         f"{state.points.shape[0]} points in {sum(used)} imagesets, "
         f"{state.points.dtype} on {state.points.device}, "
@@ -1279,7 +1461,7 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
         "outlier-pass BA", "final BA", "float64 polish"]
     for i, st_ in enumerate(stages):
         label = names[i] if i < len(names) else f"stage {i}"
-        log(f"[7] {label} at {st_['grid']} ({st_['dtype']} on "
+        log(f"{tag} {label} at {st_['grid']} ({st_['dtype']} on "
             f"{st_['device']}): {st_['iterations']} LM iterations "
             f"({st_['accepted']} accepted) in {st_['seconds']:.3f} s = "
             f"{st_['iterations'] / max(st_['seconds'], 1e-9):.2f} LM it/s, "
@@ -1287,22 +1469,22 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
             f"launches {json.dumps(st_['launches'], sort_keys=True)} on {smi}")
     starts = [st_["start"] for st_ in stages] + [times["calibrate"]]
     for lv, i in ((2, 0), (1, 2)):
-        log(f"[7] pyramid level {lv} ({stages[i]['grid']}): "
+        log(f"{tag} pyramid level {lv} ({stages[i]['grid']}): "
             f"{starts[i + 2] - starts[i]:.3f} s (host, both BAs and the "
             f"resample)")
-    log(f"[7] outlier pass at {outlier_pass['grid']}: removed "
+    log(f"{tag} outlier pass at {outlier_pass['grid']}: removed "
         f"{outlier_pass['removed']} in {outlier_pass['seconds']:.3f} s; "
         f"launches {json.dumps(outlier_pass['launches'], sort_keys=True)}")
-    log(f"[7] launches per grid: {json.dumps(per_grid, sort_keys=True)}; "
+    log(f"{tag} launches per grid: {json.dumps(per_grid, sort_keys=True)}; "
         f"total {json.dumps(totals, sort_keys=True)}")
     shown = {k: v for k, v in report.items() if k not in ("solver",
                                                          "pyramid")}
-    log(f"[7] report: {json.dumps(shown, sort_keys=True)}")
-    log(f"[7] host times (s): {json.dumps(times, sort_keys=True)} on {smi}")
+    log(f"{tag} report: {json.dumps(shown, sort_keys=True)}")
+    log(f"{tag} host times (s): {json.dumps(times, sort_keys=True)} on {smi}")
 
     final_grid = tuple(st_f.intrinsics[0].grid.shape[:2])
     require(final_grid == (45, 79), f"final grid {final_grid}")
-    require(report["reprojection_error_median"] < PIPELINE_MEDIAN_PX,
+    require(report["reprojection_error_median"] < median_px,
             f"median reprojection error {report['reprojection_error_median']}")
     require(abs(report["scale_factor"] - 1.0) < 0.05,
             f"scale factor {report['scale_factor']}")
@@ -1325,7 +1507,7 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
     state_io.save_ba_state(out_dir / "state", st_f, used, fid)
     require((out_dir / "state" / "intrinsics0.yaml").exists(),
             "state_io wrote no intrinsics")
-    log(f"[7] state saved to {out_dir / 'state'} in "
+    log(f"{tag} state saved to {out_dir / 'state'} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # Each kernel against its plain version, and one LM step through the
@@ -1372,9 +1554,201 @@ def calibration_pipeline(torch, smi, n_imagesets, checks, device=None):
                 and abs(rms_k - rms_p) <= PIPELINE_STEP_RMS_PX,
                 f"pipeline {grid}: the LM step through the kernels "
                 "disagrees with the plain step")
-    log(f"[7] pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
     return {"launches": per_grid, "report": report, "times": times,
             "stages": stages}
+
+
+def image_pipeline(torch, smi, n_views, checks, device=None):
+    """Calibration from camera images through the port's own entry points:
+    ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with its
+    central tag), render-synthetic (``n_views`` seeded views by the
+    1920×1080 pinhole camera of [7]) and extract-features (detection on
+    ``device``, the card by default), then :func:`calibrate_dataset` of
+    the dataset it wrote.  Gates: every view detects at least
+    IMAGE_MIN_DETECTED of the board corners its true pose puts inside the
+    image (2·window_half_size from the border); the median distance of
+    detected corners to the rendered truth is under IMAGE_MEDIAN_TRUTH_PX;
+    the first refinement batch of the detection, refined again on the CPU
+    in float64, converges to within IMAGE_RING_PX of the card's float32
+    result on 95% of its features (IMAGE_RING_MEDIAN_PX on the median,
+    IMAGE_RING_MAX_PX on all); and the calibration meets IMAGE_MEDIAN_PX.  Also prints the
+    refinement throughput at the reference benchmark's shape."""
+    import shutil
+
+    from camera_calibration_torch import _cuda, cli
+    from camera_calibration_torch.features import detector as fdet
+    from camera_calibration_torch.features import patch_refinement as pref
+    from camera_calibration_torch.features.degrade import degrade
+    from camera_calibration_torch.features import pattern as pat
+    from camera_calibration_torch.io import dataset_bin
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    out_dir = _cuda.BUILD_ROOT / "images"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    times = {}
+    w, h = 1920, 1080
+    t0 = time.perf_counter()
+    cli.main(["create-pattern", "--output_directory", str(out_dir / "pattern"),
+              "--squares_x", "24", "--squares_y", "24",
+              "--square_length_in_meters", "0.02"])
+    base = out_dir / "pattern" / "pattern_resolution_24x24_segments_16"
+    times["pattern"] = time.perf_counter() - t0
+    render = ["--width", str(w), "--height", str(h), "--min_z",
+              str(IMAGE_MIN_Z), "--max_z", str(IMAGE_MAX_Z)]
+    t0 = time.perf_counter()
+    cli.main(["render-synthetic", "--pattern_file", f"{base}.yaml",
+              "--output_directory", str(out_dir / "views"), "--num_images",
+              str(n_views), *render, "--noise", str(IMAGE_NOISE),
+              "--defocus_sigma", str(IMAGE_DEFOCUS), "--seed",
+              str(IMAGE_SEED)])
+    times["render"] = time.perf_counter() - t0
+
+    # detection on the card, keeping the inputs and result of the first
+    # refinement batch (the rings next to every view's tag)
+    first = {}
+    two_stage = pref.refine_two_stage_patches
+
+    def keep_first(*args, **kw):
+        out = two_stage(*args, **kw)
+        if not first:
+            first.update(args=args, out=out)
+        return out
+
+    path = out_dir / "dataset.bin"
+    t0 = time.perf_counter()
+    with mock.patch.object(pref, "refine_two_stage_patches", keep_first):
+        cli.main(["extract-features", "--image_directories",
+                  str(out_dir / "views"), "--pattern_files", f"{base}.yaml",
+                  "--output", str(path),
+                  *([] if device is None else ["--device", str(dev)])])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    times["detect"] = time.perf_counter() - t0
+    ds = dataset_bin.load_datasets(str(path))
+    require(len(ds.imagesets) == n_views and ds.image_sizes == [(w, h)],
+            "extract-features did not write every view")
+
+    # every view against the rendered truth
+    spec = pat.load_pattern_yaml(f"{base}.yaml")
+    corner_map = pat.corners_for_patterns([spec])[0]
+    margin = 2 * fdet.DetectorOptions().window_half_size
+    per_view, errs = [], []
+    for (i, h_pp, view_rng), imageset in zip(
+            cli.render_views(spec, n_views, w, h, IMAGE_MIN_Z, IMAGE_MAX_Z,
+                             IMAGE_SEED), ds.imagesets):
+        # the render drew the view's noise from the same generator
+        degrade(np.zeros((h, w)), view_rng, defocus_sigma=IMAGE_DEFOCUS,
+                noise=IMAGE_NOISE)
+        truth, inside_margin = {}, set()
+        for fid, (cx, cy) in corner_map.items():
+            q = h_pp @ np.array([cx, cy, 1.0])
+            truth[fid] = q[:2] / q[2]  # pixel-corner convention
+            c = truth[fid] - 0.5
+            if (margin <= c[0] <= w - 1 - margin
+                    and margin <= c[1] <= h - 1 - margin):
+                inside_margin.add(fid)
+        found = {f.feature_id: f.xy for f in imageset.features[0]}
+        inside = [fid for fid in found if fid in inside_margin]
+        errs += [float(np.linalg.norm(xy - truth[fid]))
+                 for fid, xy in found.items()]
+        n_truth = len(inside_margin)
+        per_view.append((len(found), len(inside), n_truth))
+        require(len(inside) >= IMAGE_MIN_DETECTED * n_truth,
+                f"view {i}: {len(inside)} of the {n_truth} corners inside the "
+                "image detected")
+    med = float(np.median(errs))
+    log(f"{IMAGE_TAG} features per view (detected, of them inside the "
+        f"margin, corners inside the margin): {per_view}")
+    log(f"{IMAGE_TAG} {len(errs)} features in {n_views} views, median "
+        f"distance to the rendered truth {med:.4f} px (90th percentile "
+        f"{float(np.percentile(errs, 90)):.4f}, max {max(errs):.4f})")
+    require(med < IMAGE_MEDIAN_TRUTH_PX,
+            f"median distance to the truth {med} px")
+
+    # the first refinement batch again on the CPU in float64
+    args = first["args"]
+    image, idx = args[0], args[-1]
+    used = torch.unique(idx)
+    remap = torch.full((image.shape[0],), -1, dtype=torch.long,
+                       device=idx.device)
+    remap[used] = torch.arange(used.numel(), device=idx.device)
+    cpu_args = [a.detach().cpu().double() if a.is_floating_point()
+                else a.detach().cpu() for a in args[1:-1] if torch.is_tensor(a)]
+    t0 = time.perf_counter()
+    on_cpu = two_stage(image[used].cpu().double(), *cpu_args[:7],
+                       args[8], args[9], remap[idx.long()].cpu())
+    cpu_s = time.perf_counter() - t0
+    on_card = first["out"].double().cpu()
+    ok_card, ok_cpu = on_card[:, 3] > 0.5, on_cpu[:, 3] > 0.5
+    both = ok_card & ok_cpu
+    gaps = (on_card[both, :2] - on_cpu[both, :2]).abs().amax(dim=1).numpy()
+    flips = int((ok_card != ok_cpu).sum())
+    q50, q95 = (float(np.percentile(gaps, q)) for q in (50, 95))
+    log(f"{IMAGE_TAG} first refinement batch: {on_card.shape[0]} features "
+        f"of {used.numel()} views, {int(both.sum())} converged on both, "
+        f"{flips} converged on one only; card float32 vs CPU float64 |Δ| "
+        f"median {q50:.3e}, 95th percentile {q95:.3e}, max "
+        f"{float(gaps.max()):.3e} px, {int((gaps > IMAGE_RING_PX).sum())} "
+        f"over {IMAGE_RING_PX} px (CPU float64 {cpu_s:.2f} s)")
+    require(int(both.sum()) > 0.5 * on_card.shape[0]
+            and flips <= max(2, 0.01 * on_card.shape[0])
+            and q50 <= IMAGE_RING_MEDIAN_PX and q95 <= IMAGE_RING_PX
+            and float(gaps.max()) <= IMAGE_RING_MAX_PX,
+            "the first refinement batch on the card disagrees with float64 "
+            "on the CPU")
+
+    # refinement throughput at the reference benchmark's shape: 2048
+    # features, 512 symmetry + 64 matching samples, a 1280x1024 image
+    rng = np.random.default_rng(0)
+    bh, bw = 1024, 1280
+    img = rng.uniform(0, 1, (bh, bw)).astype(np.float32)
+    n_f, n_s, whs = 2048, 512, 10
+    n_match = n_s // 8
+    positions = rng.uniform(60, [bw - 60, bh - 60], (n_f, 2))
+    h0 = np.tile(np.eye(3, dtype=np.float32), (n_f, 1, 1))
+    h0[:, 0, 0] += rng.uniform(-0.05, 0.05, n_f)
+    h0[:, 1, 1] += rng.uniform(-0.05, 0.05, n_f)
+    from camera_calibration_torch.features import refinement as fref
+    offs = fref.make_sample_offsets(rng, whs, n_s) * whs
+    samples = np.tile(offs[None], (n_f, 1, 1)).astype(np.float32)
+    rendered = rng.uniform(0, 1, (n_f, n_match)).astype(np.float32)
+
+    def on(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    bench = (on(img)[None], on(positions), on(h0), on(samples[:, :n_match]),
+             on(rendered), on(np.ones((n_f, n_match)), torch.bool),
+             on(samples), on(np.ones((n_f, n_s)), torch.bool), whs,
+             pref.patch_size_for_window(whs),
+             on(np.zeros(n_f), torch.int32))
+    best = None
+    for _ in range(4):  # the first is a warm-up
+        t0 = time.perf_counter()
+        float(pref.refine_two_stage_patches(*bench).sum())
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    log(f"{IMAGE_TAG} corner refinement: {n_f / best:.1f} features/s "
+        f"({n_f} features, {n_s} + {n_match} samples, {bw}x{bh} image, "
+        f"best of 3: {best * 1e3:.1f} ms) on {smi}")
+    if dev.type == "cuda":
+        _, *prof = device_profile(
+            torch, lambda: pref.refine_two_stage_patches(*bench),
+            "refinement_trace.json")
+        log_profile(IMAGE_TAG, "one refinement call at that shape", *prof,
+                    smi)
+
+    log(f"{IMAGE_TAG} host times so far (s): "
+        f"{json.dumps(times, sort_keys=True)} on {smi}")
+    result = calibrate_dataset(torch, smi, ds, checks, dev, out_dir,
+                               IMAGE_TAG, IMAGE_MEDIAN_PX, times)
+    polish = result["stages"][-1]["seconds"]
+    log(f"{IMAGE_TAG} host seconds per stage: render {times['render']:.2f}, "
+        f"detect {times['detect']:.2f}, init {times['init']:.2f}, state "
+        f"{times['state']:.2f}, calibrate {times['calibrate']:.2f} (of it "
+        f"the float64 polish {polish:.2f}) on {smi}")
+    result["refinements_per_s"] = n_f / best
+    return result
 
 
 def sparse_intrinsics_jacobian(torch, j_win, base, gh, gw, k):
@@ -1404,20 +1778,20 @@ def sparse_intrinsics_jacobian(torch, j_win, base, gh, gw, k):
     return (j.coalesce().to_sparse_csr(), jt.coalesce().to_sparse_csr())
 
 
-def profile_step(torch, lm_pcg, state, data, options, smi):
-    """Device time of a short two-pass ``optimize`` run under
-    ``torch.profiler``: the device's busy share of the wall time, the host
-    synchronisations, and the kernels that take the most time."""
+def device_profile(torch, run, trace_name):
+    """Run ``run()`` under ``torch.profiler`` and read the trace: (wall
+    µs, device busy µs, kernel launches, host syncs or copies, {kernel
+    name: (µs, count)}); busy is None where the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from camera_calibration_torch import _cuda
 
     _cuda.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    trace_path = str(_cuda.BUILD_ROOT / "chip_smoke_trace.json")
+    trace_path = str(_cuda.BUILD_ROOT / trace_name)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, info = lm_pcg.optimize(state, None, None, options, data=data)
+        out = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(trace_path)
@@ -1425,11 +1799,8 @@ def profile_step(torch, lm_pcg, state, data, options, smi):
         events = json.load(f)
     events = events.get("traceEvents", events) if isinstance(events, dict) else events
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    n_it = len(info["history"])
     if not kernels:
-        log(f"[6] device time: not measured (the profiler saw no kernels); "
-            f"{n_it} LM iterations in {wall_us / 1e3:.1f} ms")
-        return
+        return out, wall_us, None, 0, 0, {}
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in kernels)
     busy, end = 0.0, -1.0
@@ -1444,12 +1815,32 @@ def profile_step(torch, lm_pcg, state, data, options, smi):
     for e in kernels:
         tot, cnt = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (tot + float(e["dur"]), cnt + 1)
-    log(f"[6] profile of {n_it} two-pass LM iterations: wall "
+    return out, wall_us, busy, len(kernels), syncs, by_name
+
+
+def log_profile(tag, what, wall_us, busy, n_kernels, syncs, by_name, smi):
+    if busy is None:
+        log(f"{tag} device time: not measured (the profiler saw no "
+            f"kernels); {what} in {wall_us / 1e3:.1f} ms")
+        return
+    log(f"{tag} profile of {what}: wall "
         f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-        f"({100.0 * busy / wall_us:.1f}%), {len(kernels)} kernel launches, "
+        f"({100.0 * busy / wall_us:.1f}%), {n_kernels} kernel launches, "
         f"{syncs} host syncs/copies, on {smi}")
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"    {tot / 1e3:8.3f} ms {cnt:6d}x  {name[:100]}")
+
+
+def profile_step(torch, lm_pcg, state, data, options, smi):
+    """Device time of a short two-pass ``optimize`` run under
+    ``torch.profiler``: the device's busy share of the wall time, the host
+    synchronisations, and the kernels that take the most time (trace in
+    ``_build/chip_smoke_trace.json``)."""
+    (_, info), *prof = device_profile(
+        torch, lambda: lm_pcg.optimize(state, None, None, options, data=data),
+        "chip_smoke_trace.json")
+    log_profile("[6]", f"{len(info['history'])} two-pass LM iterations",
+                *prof, smi)
 
 
 @contextmanager

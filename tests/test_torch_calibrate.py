@@ -23,8 +23,9 @@ a module fixture that records every BA stage.  Held against each other:
 
 The module runs with one intra-op thread (see ``_one_torch_thread``).
 
-Also: a CPU check that the grid of a 2448×2048 camera at 25 px per cell is
-past the shared-memory limit of the ``project_blocks`` kernel.
+Also: a CPU check that at the grid of a 2448×2048 camera at 25 px per cell
+the ``project_blocks`` kernel's plan reads its fields from device memory
+(they are past one block's shared memory), and stages them at 1080p.
 """
 
 import dataclasses
@@ -36,6 +37,7 @@ import torch
 
 from camera_calibration_torch import _cuda
 from camera_calibration_torch import calibrate as tcal
+from camera_calibration_torch.ba import window_cuda as wc
 from camera_calibration_torch.init.state_init import build_ba_state as tbuild
 from camera_calibration_torch.models import central_generic_cuda as cgc
 from camera_calibration_tpu import calibrate as jcal
@@ -285,16 +287,25 @@ def test_grid_resolutions(size):
 
 
 def test_project_blocks_grid_limit_at_5mp():
-    """The 2448×2048 pipeline grid at 25 px per cell (100×84 knots) needs
-    more shared memory per block than a Hopper block has: the kernel
-    refuses it before the launch (ROADMAP queue 2)."""
+    """The 2448×2048 pipeline grid at 25 px per cell (100×84 knots) would
+    need more shared memory per block than a Hopper block has to stage the
+    grid and both frame fields: the plan picks the kernel that reads them
+    from device memory there, and the staged one at the 1080p grid (45×79).
+    The same holds for the K=5 tangent of ``window_apply_j`` at 108×108
+    (unstaged) and 45×79 (staged)."""
     gw, gh = tcal.compute_grid_resolution(2448, 2048, 25)
     assert (gw, gh) == (100, 84)
-    assert cgc.project_smem_bytes(gh, gw, blocks=True) == 302_400
-    assert cgc.project_smem_bytes(gh, gw, blocks=True) > _cuda.MAX_SMEM_BYTES
-    assert cgc.project_smem_bytes(45, 79, blocks=True) <= _cuda.MAX_SMEM_BYTES
+    assert cgc.staged_bytes(gh, gw, blocks=True) == 302_400
+    assert cgc.staged_bytes(gh, gw, blocks=True) > _cuda.MAX_SMEM_BYTES
+    assert not cgc.project_staged(gh, gw, blocks=True)
+    assert cgc.project_smem_bytes(gh, gw, blocks=True) == 0
+    assert cgc.project_staged(gh, gw)  # project alone: 100,800 B
+    assert cgc.project_staged(45, 79, blocks=True)
+    assert cgc.project_smem_bytes(45, 79, blocks=True) == 127_980
+    assert not wc.apply_j_staged(108, 108, 5)
+    assert wc.apply_j_staged(45, 79, 5)
     with pytest.raises(ValueError, match="shared memory"):
-        _cuda.check_smem(cgc.project_smem_bytes(gh, gw, blocks=True),
+        _cuda.check_smem(cgc.staged_bytes(gh, gw, blocks=True),
                          "project_blocks")
 
 

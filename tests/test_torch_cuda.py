@@ -15,6 +15,10 @@ bit-identical results.  The two matvec kernels also read a bfloat16 j_win
 same bf16 values, with N odd, even but not a multiple of 8, and a j_win
 view that is not 4-byte aligned (the kernels' three staging paths).
 
+The detector and the fused corner refinement run in float32 on the card
+against float64 on the CPU (the same features, positions within 1e-3 px
+at the median or 95th percentile and 1e-2 px at most).
+
 The calibration pipeline (dense initialization, ``build_ba_state``,
 ``calibrate``) runs on the small dataset of ``tests/test_e2e.py`` in
 float32 on the card and on the CPU: the same outliers, medians within 1e-3
@@ -110,6 +114,9 @@ K5_MAX_GRID = 58
     # square K=5 grid whose tangent fits window_apply_j's block)
     (45, 79, 5, 50000, "random"), (59, 59, 5, 20001, "random"),
     (107, 107, 5, 20000, "random"), (45, 79, 5, 20000, "same"),
+    # K=5 at 108x108: window_apply_j reads the tangent from device memory
+    # (it no longer fits one block), the reductions run in bands
+    (108, 108, 5, 20000, "random"),
 ])
 def test_window_kernels_match_plain(card, gh, gw, k, n, bases):
     j_win, base, tangent, ws, w = _window_inputs(card, gh, gw, k, n, seed=k,
@@ -198,27 +205,31 @@ def _assert_projections_match(model, outs, n, min_valid=0.9):
     # the pipeline's default grid for a 1080p camera: project_blocks in
     # blocks of 1024 threads
     (45, 79),
-    # the largest square grid of project_blocks
+    # the largest square grid project_blocks stages in shared memory
     (80, 80),
-    # the largest square grid of project, in blocks of 1024 threads
-    (139, 139)])
+    # past it project_blocks reads its fields from device memory: one row
+    # more, and the 84x100 grid of a 2448x2048 camera at 25 px a cell
+    (81, 81), (84, 100),
+    # the largest square grid project stages, in blocks of 1024 threads,
+    # and one row more, read from device memory
+    (139, 139), (140, 140)])
 def test_projection_kernels_match_plain(card, gh, gw):
     model, dirs, warm = _projection_case(card, gh, gw, seed=gh)
     warm[:4] = torch.tensor([[-50.0, -50.0], [700.0, 240.0], [320.0, -40.0],
                              [320.0, 530.0]], device=card)
     g0 = cg.pixel_to_grid(model, warm).contiguous()
     _assert_projections_match(
-        model, _run_projections(model, dirs, g0, blocks=gh <= 80),
-        dirs.shape[0])
+        model, _run_projections(model, dirs, g0), dirs.shape[0])
 
 
-@pytest.mark.parametrize("gh,gw", [(16, 16), (139, 139)])
+@pytest.mark.parametrize("gh,gw", [(16, 16), (139, 139), (84, 100)])
 def test_projection_windows_outside_the_grid(card, gh, gw):
     """Points whose warm start puts the whole window off the grid, on every
     side and far out, beside ordinary points in the same warps: the surface
     there is 0, so both versions leave the point where it is with a NaN
     cost (invalid), and the window base is floor(g) - 1 as in the plain
-    version.  The ordinary points still match (both block sizes)."""
+    version.  The ordinary points still match (both block sizes, and
+    fields staged or read from device memory)."""
     model, dirs, warm = _projection_case(card, gh, gw, seed=5)
     g0 = cg.pixel_to_grid(model, warm).contiguous()
     out = torch.zeros(g0.shape[0], dtype=torch.bool, device=card)
@@ -227,10 +238,8 @@ def test_projection_windows_outside_the_grid(card, gh, gw):
                         [3.0, gh + 3.5], [-7.0, -9.0], [-2e7, 5.0],
                         [5.0, 3e8], [gw + 40.0, gh + 40.0]], device=card)
     g0[out] = far[torch.arange(int(out.sum()), device=card) % far.shape[0]]
-    blocks = gh <= 80
-    pk, pp, bk, bp = _run_projections(model, dirs, g0, blocks=blocks)
-    results = [pk, pp] + ([bk, bp] if blocks else [])
-    for g, c, *_ in results:
+    pk, pp, bk, bp = _run_projections(model, dirs, g0)
+    for g, c, *_ in (pk, pp, bk, bp):
         assert torch.equal(g[out], g0[out])
         assert bool(torch.isnan(c[out]).all())
     keep = ~out
@@ -241,8 +250,7 @@ def test_projection_windows_outside_the_grid(card, gh, gw):
         return tuple(t[keep] if t.shape[0] == g0.shape[0] else t[:, keep]
                      for t in res)
 
-    if blocks:
-        assert torch.equal(bk[4][out], bp[4][out])
+    assert torch.equal(bk[4][out], bp[4][out])
     _assert_projections_match(model, tuple(kept(r) for r in (pk, pp, bk, bp)),
                               int(keep.sum()))
 
@@ -398,22 +406,37 @@ def test_bf16_jtw_narrower_bands_are_bit_identical(card, gh, gw, k,
 
 
 def test_project_smem_bytes_match_the_kernels(card):
-    """The Python reckoning of shared memory and block size equals the
-    library's own for both kernels, and an SM holds at least 32 warps."""
+    """The Python reckoning of the staged-or-not choice, shared memory and
+    block size equals the library's own for both kernels, and an SM holds
+    at least 32 warps, staged or not."""
     lib = _cuda.lib()
     grids = ((16, 16), (21, 28), (45, 79), (68, 68), (69, 70), (80, 80),
-             (139, 139))
+             (81, 81), (84, 100), (139, 139), (140, 140))
     for blocks in (False, True):
         for gh, gw in grids:
+            staged = cgc.project_staged(gh, gw, blocks)
+            assert lib.cct_project_staged(int(blocks), gh, gw) == int(staged)
             nbytes = cgc.project_smem_bytes(gh, gw, blocks)
             assert lib.cct_project_smem_bytes(int(blocks), gh, gw) == nbytes
+            assert nbytes <= _cuda.MAX_SMEM_BYTES
             threads = cgc.threads(gh, gw, blocks)
             assert lib.cct_project_threads(int(blocks), gh, gw) == threads
-            if nbytes > _cuda.MAX_SMEM_BYTES:
-                continue
             per_sm, nblocks = cgc.launch_shape(blocks, 262_144, gh, gw, card)
             assert per_sm * threads >= 1024, (blocks, gh, gw)
             assert 1 <= nblocks <= per_sm * _cuda.num_sms(card)
+
+
+def test_apply_j_staged_matches_the_kernel(card):
+    """The Python reckoning of whether window_apply_j stages its tangent
+    equals the library's own, on both sides of the limit."""
+    lib = _cuda.lib()
+    for k, gh, gw in ((2, 16, 16), (2, 170, 170), (2, 171, 171), (5, 45, 79),
+                      (5, 107, 107), (5, 108, 108), (5, 11622, 1),
+                      (5, 11623, 1)):
+        staged = wc.apply_j_staged(gh, gw, k)
+        assert lib.cct_window_apply_j_staged(k, gh, gw) == int(staged)
+    assert not wc.apply_j_staged(108, 108, 5)
+    assert wc.apply_j_staged(107, 107, 5)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -431,23 +454,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         wc.window_block_diag(j_win, base.long(), w, 16, 16, 2)
     with pytest.raises(ValueError):
         wc.window_apply_j(j_win[:32], base, tangent)
-    # One grid row and column more than the largest square grid each
-    # projection kernel takes in a block's 227 KB of shared memory: 140x140
-    # packed knots for project, 81x81 knots and frames for project_blocks.
+    # No grid is refused for its size by the projections or J.v: one grid
+    # row and column more than the largest square grid each projection
+    # kernel stages (140x140 for project, 81x81 for project_blocks) and the
+    # K=5 tangent at 108x108 launch the kernels that read from device memory.
     dirs = torch.tensor([[0.0, 0.0, 1.0]], device=card)
     before = dict(_cuda.launches)
     big = problems.pinhole_model(640, 480, 140, 140, device=card)
-    with pytest.raises(ValueError, match="shared memory"):
-        cgc.project_grid_coords(big.grid, dirs,
-                                torch.tensor([[70.0, 70.0]], device=card),
-                                (1, 1), (138, 138), 4, 1e-10)
+    assert not cgc.project_staged(140, 140)
+    cgc.project_grid_coords(big.grid, dirs,
+                            torch.tensor([[70.0, 70.0]], device=card),
+                            (1, 1), (138, 138), 4, 1e-10)
     big = problems.pinhole_model(640, 480, 81, 81, device=card)
+    assert not cgc.project_staged(81, 81, blocks=True)
     t1, t2 = (t.contiguous() for t in manifolds.direction_tangents(big.grid))
-    with pytest.raises(ValueError, match="shared memory"):
-        cgc.project_blocks(big.grid, t1, t2, dirs,
-                           torch.tensor([[40.0, 40.0]], device=card), (1, 1),
-                           (79, 79), (1.0, 1.0), 4, 1e-10)
-    assert dict(_cuda.launches) == before
+    cgc.project_blocks(big.grid, t1, t2, dirs,
+                       torch.tensor([[40.0, 40.0]], device=card), (1, 1),
+                       (79, 79), (1.0, 1.0), 4, 1e-10)
+    j5, b5, t5, _, _ = _window_inputs(card, 108, 108, 5, 64, seed=0)
+    assert not wc.apply_j_staged(108, 108, 5)
+    wc.window_apply_j(j5, b5, t5)
+    torch.cuda.synchronize()
+    assert _cuda.launches["project"] == before.get("project", 0) + 1
+    assert _cuda.launches["project_blocks"] == \
+        before.get("project_blocks", 0) + 1
+    assert _cuda.launches["window_apply_j"] == \
+        before.get("window_apply_j", 0) + 1
     # a grid whose single row of K=5 blocks does not fit one block
     gh, gw = 2, 3264
     j5, b5, _, _, w5 = _window_inputs(card, gh, gw, 5, 64, seed=0)
@@ -649,3 +681,110 @@ def test_native_densify_builds_and_loads(card):
                                       pts, valid)
     assert n == 16 and valid.all() and native.calls["densify_matches"] == 1
     np.testing.assert_allclose(pts[0, 0], [0.0625, 0.0625, 0.0])
+
+
+def _tagged_board(seed=4, noise=0.02, n=12, square_px=26.0):
+    """The tagged 12×12 board of ``tests/test_detector.py``, rendered with
+    the port's pattern module: (spec, image, pattern-to-pixel homography)."""
+    from camera_calibration_torch.features import pattern as pat
+
+    rng = np.random.default_rng(seed)
+    spec = pat.PatternSpec(
+        num_star_segments=16, squares_x=n, squares_y=n,
+        square_length_in_meters=0.02,
+        tags=[pat.AprilTagInfo(x=4, y=4, width=3, height=3, index=0)])
+    c, s = np.cos(0.04), np.sin(0.04)
+    h_pp = np.array([[square_px * c, -square_px * s, 2.2 * square_px],
+                     [square_px * s, square_px * c, 2.0 * square_px],
+                     [2e-5, -2e-5, 1.0]])
+    size = int(square_px * (n + 3))
+    img = pat.render_pattern(spec, np.linalg.inv(h_pp), (size, size),
+                             supersample=4,
+                             tag_renderer=pat.make_tag_renderer(spec))
+    return spec, np.clip(img + rng.normal(0, noise, img.shape), 0, 1), h_pp
+
+
+def test_detector_on_the_card_matches_the_cpu(card):
+    """detect_batch with the images and the refinement on the card in
+    float32 against the CPU in float64: at least 98% of the features in
+    common, their positions within 1e-3 px at the median and 1e-2 px at
+    most (float32 cannot follow the symmetry cost's flat valleys as far
+    as float64), and within 0.1 px of the truth at the median."""
+    from camera_calibration_torch.features import detector as fdet
+    from camera_calibration_torch.features import pattern as pat
+
+    boards = [_tagged_board(seed) for seed in (4, 5)]
+    spec = boards[0][0]
+    images = [b[1] for b in boards]
+    got = fdet.FeatureDetector([spec], device=card).detect_batch(images)
+    want = fdet.FeatureDetector([spec], device="cpu",
+                                dtype=torch.float64).detect_batch(images)
+    corner_map = pat.corners_for_patterns([spec])[0]
+    for (gf, _), (wf, _), (_, _, h_pp) in zip(got, want, boards):
+        g = {f.feature_id: f.xy for f in gf}
+        w = {f.feature_id: f.xy for f in wf}
+        common = sorted(set(g) & set(w))
+        assert len(common) >= 0.98 * max(len(g), len(w)) > 0
+        gaps = np.array([np.abs(g[k] - w[k]).max() for k in common])
+        assert np.median(gaps) <= 1e-3 and gaps.max() <= 1e-2, gaps.max()
+        truth = []
+        for k in common:
+            q = h_pp @ np.array([*corner_map[k], 1.0])
+            truth.append(np.linalg.norm(g[k] - q[:2] / q[2]))
+        assert np.median(truth) < 0.1
+
+
+def test_corner_refinement_on_the_card_matches_the_cpu(card):
+    """The fused two-stage refinement on a rendered board batch, float32 on
+    the card against float64 on the CPU: the same converged flags but for
+    1%, positions within 1e-3 px at the 95th percentile and 1e-2 px at
+    most, and near the truth."""
+    from camera_calibration_torch.features import patch_refinement as pref
+    from camera_calibration_torch.features import pattern as pat
+    from camera_calibration_torch.features import refinement as fref
+
+    spec, img, h_pp = _tagged_board(seed=7, noise=0.01)
+    rng = np.random.default_rng(3)
+    coords = [c for c in spec.valid_feature_coords()][:160]
+    gt, h_loc = [], []
+    for fx, fy in coords:
+        t = np.eye(3)
+        t[0, 2], t[1, 2] = fx, fy
+        hl = h_pp @ t
+        hl = hl / hl[2, 2]
+        q = h_pp @ np.array([fx, fy, 1.0])
+        gt.append(q[:2] / q[2] - 0.5)
+        hl[0:2, 2] = gt[-1]
+        h_loc.append(hl)
+    gt, h_loc = np.array(gt), np.array(h_loc)
+    pred = gt + rng.uniform(-1.0, 1.0, gt.shape)
+    whs = 10
+    offs = fref.make_sample_offsets(rng, whs, 512) * whs
+    h_rel = h_loc.copy()
+    h_rel[:, 0:2, 2] = 0.0
+    h_inv = np.linalg.inv(h_rel)
+    q = np.einsum("nij,sj->nsi", h_inv[:, :, :2], offs) + h_inv[:, None, :, 2]
+    samples = q[..., :2] / q[..., 2:3]
+    rendered = pat.PatternSpec(16, 12, 12, 0.02).intensity(samples[:, :64])
+    n = len(coords)
+
+    def run(device, dtype):
+        def t(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=device)
+        return pref.refine_two_stage_patches(
+            t(img[None]), t(pred), t(h_loc), t(samples[:, :64]),
+            t(rendered), t(np.ones((n, 64)), torch.bool), t(samples),
+            t(np.ones((n, 512)), torch.bool), whs,
+            pref.patch_size_for_window(whs),
+            t(np.zeros(n), torch.int32)).double().cpu().numpy()
+
+    got = run(card, torch.float32)
+    want = run("cpu", torch.float64)
+    ok_g, ok_w = got[:, 3] > 0.5, want[:, 3] > 0.5
+    assert int((ok_g != ok_w).sum()) <= max(1, 0.01 * n)
+    both = ok_g & ok_w
+    assert both.sum() >= 0.9 * n
+    gaps = np.abs(got[both, :2] - want[both, :2]).max(axis=1)
+    assert np.percentile(gaps, 95) <= 1e-3 and gaps.max() <= 1e-2, gaps.max()
+    assert np.median(np.linalg.norm(got[both, :2] - gt[both], axis=1)) < 0.05

@@ -54,7 +54,12 @@ NEW_MODULES = ("models/parametric.py", "models/pinhole.py", "ba/gn.py",
                "ba/dataset.py", "io/dataset_bin.py", "native/__init__.py",
                "init/relative_pose.py", "init/p3p.py", "init/dense_init.py",
                "models/fit.py", "init/state_init.py", "calibrate.py",
-               "io/state_io.py", "problems.py")
+               "io/state_io.py", "problems.py", "ops/interp.py",
+               "ops/dlt.py", "features/tag36h11_data.py",
+               "features/pattern.py", "features/apriltag.py",
+               "features/degrade.py", "features/refinement.py",
+               "features/patch_refinement.py", "features/detector.py",
+               "cli.py")
 
 
 def test_no_forbidden_imports():

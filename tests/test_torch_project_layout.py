@@ -1,9 +1,11 @@
 """Shared memory and launch shape of the projection kernels, on the CPU.
 
 ``csrc/project.cu`` stages the grid (and, for ``project_blocks``, its two
-frame fields) in shared memory as packed 12-byte knots, and launches
-persistent blocks of 256 threads where four fit in one SM's shared memory,
-else of 1024.  ``models/central_generic_cuda.py`` mirrors both rules; a
+frame fields) in shared memory as packed 12-byte knots where they fit one
+block, and launches persistent blocks of 256 threads where four fit in one
+SM's shared memory, else of 1024.  Where the fields do not fit, the same
+kernel reads them from device memory, with no dynamic shared memory, in
+blocks of 256.  ``models/central_generic_cuda.py`` mirrors these rules; a
 card test (``tests/test_torch_cuda.py``) holds them equal to the library.
 """
 
@@ -31,6 +33,8 @@ SMEM_CASES = [
 @pytest.mark.parametrize("gh,gw,blocks,nbytes,threads", SMEM_CASES)
 def test_projection_smem_bytes_and_block_size(gh, gw, blocks, nbytes,
                                               threads):
+    assert cgc.project_staged(gh, gw, blocks)
+    assert cgc.staged_bytes(gh, gw, blocks) == nbytes
     assert cgc.project_smem_bytes(gh, gw, blocks) == nbytes
     assert cgc.threads(gh, gw, blocks) == threads
     _cuda.check_smem(nbytes, "project")
@@ -38,12 +42,18 @@ def test_projection_smem_bytes_and_block_size(gh, gw, blocks, nbytes,
 
 @pytest.mark.parametrize("gh,gw,blocks", [
     (140, 140, False), (113, 172, False), (8, 2500, False),
-    (81, 81, True), (45, 144, True)])
+    (81, 81, True), (45, 144, True), (84, 100, True)])
 def test_projection_past_the_block_limit_is_refused(gh, gw, blocks):
-    nbytes = cgc.project_smem_bytes(gh, gw, blocks)
+    """Past one block's shared memory the staged plan is refused, and the
+    kernel reads its fields from device memory instead: no dynamic shared
+    memory, blocks of 256 threads."""
+    nbytes = cgc.staged_bytes(gh, gw, blocks)
     assert nbytes > _cuda.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         _cuda.check_smem(nbytes, "project")
+    assert not cgc.project_staged(gh, gw, blocks)
+    assert cgc.project_smem_bytes(gh, gw, blocks) == 0
+    assert cgc.threads(gh, gw, blocks) == 256
 
 
 @pytest.mark.parametrize("blocks,per_knot,largest", [(False, 12, 139),
