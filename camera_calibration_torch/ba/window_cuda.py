@@ -17,13 +17,13 @@ the plain version; a CUDA float32 ``j_win`` with an int32 ``base_xy`` goes to
 the kernel; anything else raises.  The kernels take K = 2 (central) and
 K = 5 (noncentral).
 
-:func:`window_apply_j` and :func:`window_apply_jtw` also read a bfloat16
-``j_win`` (the CG matvecs' copies, ``cg_jacobian_dtype="bfloat16"``): the
-kernel widens it to float32 on load and sums in float32 (its launches are
-counted as ``<name>_bf16``); the plain version widens it to float32 first.
-Every other tensor stays float32, and :func:`window_block_diag` takes
-float32 only: the LM step builds the preconditioner from the float32
-blocks.
+All three also read a bfloat16 ``j_win`` (the CG matvecs' copies,
+``cg_jacobian_dtype="bfloat16"``, for the two matvecs): the kernel widens
+it to float32 on load and sums in float32 (its launches are counted as
+``<name>_bf16``); the plain version widens it to float32 first.  Every
+other tensor stays float32.  No caller of the LM step passes a bfloat16
+``j_win`` to :func:`window_block_diag`: it builds the preconditioner from
+the float32 blocks, as the reference package's step does.
 """
 
 from __future__ import annotations
@@ -45,14 +45,25 @@ RING = (64, 2)
 COMPACT = (32, 1)
 
 
-def _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes=4):
+def prep_rows(name: str, k: int) -> int:
+    """The float32 rows a bfloat16 tile of reduction kernel ``name`` is
+    prepared into, as its C++ Op declares them (``kPrepRows``): ``JtwOp``
+    keeps 16K, ``BlockDiagOp`` widens all 32K."""
+    return {"window_apply_jtw": 16, "window_block_diag": 32}[name] * k
+
+
+def _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes=4,
+                       prep_rows=0):
     """One block's bytes: the stages (32K j_win rows of ``tile + 16 /
     elem_bytes`` elements, two floats and two ints per observation), for a
-    bfloat16 j_win the float32 area its 16K prepared rows of ``tile + 4``
-    floats go to, the masks and the accumulator grid."""
+    bfloat16 j_win the float32 area its ``prep_rows`` prepared rows of
+    ``tile + 4`` floats go to, the masks and the accumulator grid."""
     tile, stages = layout
+    if elem_bytes != 4 and prep_rows <= 0:
+        raise ValueError("a bfloat16 reduction plan needs the kernel's "
+                         "prep_rows (window_cuda.prep_rows)")
     rows_floats = 32 * k * (tile + 16 // elem_bytes) * elem_bytes // 4
-    prep = 0 if elem_bytes == 4 else 16 * k * (tile + 4)
+    prep = 0 if elem_bytes == 4 else prep_rows * (tile + 4)
     return 4 * (stages * (rows_floats + 4 * tile) + prep
                 + (rows + gw) * (tile // 32) + rows * gw * per_knot)
 
@@ -63,10 +74,11 @@ def _fits(nbytes):
 
 @functools.cache
 def reduction_plan(gh: int, gw: int, k: int, per_knot: int,
-                   elem_bytes: int = 4) -> tuple:
+                   elem_bytes: int = 4, *, prep_rows: int = 0) -> tuple:
     """(layout, band rows) of the reduction kernels' blocks at this grid
     for a j_win of ``elem_bytes``-byte elements (``cct::band_rows`` and
-    ``cct::use_ring``).
+    ``cct::use_ring``); a bfloat16 j_win also needs the kernel's
+    :func:`prep_rows`.
 
     A block keeps ``band rows`` grid rows of the (gh, gw, per_knot)
     accumulator: all gh where the compact layout of the whole grid fits one
@@ -74,7 +86,8 @@ def reduction_plan(gh: int, gw: int, k: int, per_knot: int,
     The layout is :data:`RING` where it fits at those rows, else
     :data:`COMPACT`.  Raises where one grid row does not fit."""
     def nbytes(rows, layout):
-        return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes)
+        return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes,
+                                  prep_rows)
 
     for nb in range(1, gh + 1):
         rows = -(-gh // nb)
@@ -87,23 +100,25 @@ def reduction_plan(gh: int, gw: int, k: int, per_knot: int,
 
 
 def reduction_layout(gh: int, gw: int, k: int, per_knot: int,
-                     elem_bytes: int = 4) -> tuple:
+                     elem_bytes: int = 4, *, prep_rows: int = 0) -> tuple:
     """The layout (:data:`RING` or :data:`COMPACT`) of the reduction
     kernels' blocks at this grid."""
-    return reduction_plan(gh, gw, k, per_knot, elem_bytes)[0]
+    return reduction_plan(gh, gw, k, per_knot, elem_bytes,
+                          prep_rows=prep_rows)[0]
 
 
 def reduction_bands(gh: int, gw: int, k: int, per_knot: int,
-                    elem_bytes: int = 4) -> tuple:
+                    elem_bytes: int = 4, *, prep_rows: int = 0) -> tuple:
     """(band rows, bands): the second dimension of the partial pass's
     launch grid (1 band where the whole grid fits one block)."""
-    rows = reduction_plan(gh, gw, k, per_knot, elem_bytes)[1]
+    rows = reduction_plan(gh, gw, k, per_knot, elem_bytes,
+                          prep_rows=prep_rows)[1]
     return rows, -(-gh // rows)
 
 
 def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int,
                          band_rows: int | None = None,
-                         elem_bytes: int = 4) -> int:
+                         elem_bytes: int = 4, *, prep_rows: int = 0) -> int:
     """Shared memory of one block of the reduction kernels
     (``cct::partial_smem_bytes`` in ``csrc/window_reduce.cuh``): the
     layout's stages, each 32K j_win rows plus two floats and two ints per
@@ -112,13 +127,15 @@ def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int,
     observations of a tile for each of the band's grid rows and for every
     grid column; and the band's (rows, gw, per_knot) accumulator grid.
     ``band_rows`` other than the plan's gives the block of such bands."""
-    layout, rows = reduction_plan(gh, gw, k, per_knot, elem_bytes)
+    layout, rows = reduction_plan(gh, gw, k, per_knot, elem_bytes,
+                                  prep_rows=prep_rows)
     if band_rows is not None:
         rows = band_rows
         ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING,
-                                        elem_bytes))
+                                        elem_bytes, prep_rows))
         layout = RING if ring else COMPACT
-    return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes)
+    return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes,
+                              prep_rows)
 
 
 def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
@@ -199,6 +216,7 @@ def window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k):
 
 def window_block_diag_plain(j_win, base_xy, w, gh, gw, k):
     """Per-knot K×K blocks of diag(JᵀWJ) in plain PyTorch: (gh, gw, K, K)."""
+    j_win = _widened(j_win)
     n = j_win.shape[-1]
     flat, mask = _window_index(base_xy, gh, gw)
     jw = j_win.reshape(2, 4, 4, k, n)
@@ -212,14 +230,8 @@ def window_block_diag_plain(j_win, base_xy, w, gh, gw, k):
 # --------------------------------- kernels ---------------------------------
 
 
-def _check(name, j_win, base_xy, k, bf16=True):
-    """Raise unless the kernel takes these inputs; returns N.  ``bf16``:
-    whether the kernel reads a bfloat16 ``j_win``."""
-    if j_win.dtype == torch.bfloat16 and not bf16:
-        raise TypeError(
-            f"{name}: j_win must be float32: the kernel has no bfloat16 "
-            "read, since the LM step builds the block-Jacobi "
-            "preconditioner from the float32 blocks")
+def _check(name, j_win, base_xy, k):
+    """Raise unless the kernel takes these inputs; returns N."""
     _cuda.require_cuda_f32(name, (torch.float32, torch.bfloat16),
                            j_win=j_win)
     if k not in SUPPORTED_K:
@@ -258,22 +270,24 @@ def _counted(name, j_win):
 
 
 def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, cells_per_knot,
-                      out_shape, band_rows, bf16):
-    n = _check(name, j_win, base_xy, k, bf16)
+                      out_shape, band_rows):
+    n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, per_obs=per_obs)
     elem = j_win.element_size()
-    rows = reduction_plan(gh, gw, k, cells_per_knot, elem)[1]
+    prep = prep_rows(name, k) if elem == 2 else 0
+    layout, rows = reduction_plan(gh, gw, k, cells_per_knot, elem,
+                                  prep_rows=prep)
     if band_rows is not None:
         if not 1 <= band_rows <= gh:
             raise ValueError(f"{name}: band_rows must be in 1..{gh}")
         rows = band_rows
     _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot, rows,
-                                          elem), name)
+                                          elem, prep_rows=prep), name)
     out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
     if n == 0:
         return out.zero_()
     dev = j_win.device
-    tile, _ = reduction_layout(gh, gw, k, cells_per_knot, elem)
+    tile, _ = layout
     # the plan's occupancy sets the block count, so bands of other heights
     # sum the same partial rows
     nblocks = reduction_blocks(
@@ -299,17 +313,15 @@ def window_apply_jtw(j_win, base_xy, ws, gh, gw, k, *, band_rows=None):
     if ws.shape != (j_win.shape[1], 2):
         raise ValueError("window_apply_jtw: ws must be (N, 2)")
     return _reduction_launch("window_apply_jtw", j_win, base_xy, ws, gh, gw,
-                             k, k, (gh, gw, k), band_rows, bf16=True)
+                             k, k, (gh, gw, k), band_rows)
 
 
 def window_block_diag(j_win, base_xy, w, gh, gw, k, *, band_rows=None):
     """Per-knot K×K blocks of diag(JᵀWJ): (gh, gw, K, K); w (N,).
-    ``band_rows`` as for :func:`window_apply_jtw`.  The kernel takes a
-    float32 ``j_win`` only."""
+    ``band_rows`` as for :func:`window_apply_jtw`."""
     if j_win.device.type == "cpu":
         return window_block_diag_plain(j_win, base_xy, w, gh, gw, k)
     if w.shape != (j_win.shape[1],):
         raise ValueError("window_block_diag: w must be (N,)")
     return _reduction_launch("window_block_diag", j_win, base_xy, w, gh, gw,
-                             k, k * (k + 1) // 2, (gh, gw, k, k), band_rows,
-                             bf16=False)
+                             k, k * (k + 1) // 2, (gh, gw, k, k), band_rows)

@@ -259,13 +259,6 @@ def model_kind_of(model) -> str:
     return type(model).__name__
 
 
-def _model_tensor(model):
-    for name in ("grid", "direction_grid", "params"):
-        if hasattr(model, name):
-            return getattr(model, name)
-    raise TypeError(f"not a camera model: {type(model).__name__}")
-
-
 def convert_model(model, target_kind, target_resolution, dtype=None):
     """Convert a camera model to a different kind (and/or resolution).
 
@@ -285,7 +278,7 @@ def convert_model(model, target_kind, target_resolution, dtype=None):
 
     fit_device = host_device()
     source_kind = model_kind_of(model)
-    like = _model_tensor(model)
+    like = protocol.model_tensor(model)
     dtype = dtype or like.dtype
     if source_kind == target_kind and source_kind in (
         "central_generic", "noncentral_generic",
@@ -392,7 +385,7 @@ def resample_models_if_necessary(state: BAState, model_kind: str,
         cur_kind = model_kind_of(model)
         cur_res = None
         if protocol.is_grid_model(model):
-            g = _model_tensor(model)
+            g = protocol.model_tensor(model)
             cur_res = (g.shape[1], g.shape[0])
         if cur_kind == model_kind and (
             cur_res is None or cur_res == (rx, ry)

@@ -1,17 +1,38 @@
-"""Command-line interface of the port: the image-side subcommands.
+"""Command-line interface of the port.
 
-The counterpart of the reference package's ``cli.py`` for the subcommands
-whose modules are ported:
+The counterpart of the reference package's ``cli.py``, flag for flag, for
+the subcommands whose modules are ported:
 
-  create-pattern    generate a star pattern (YAML, vector PDF, PNG preview)
-  render-synthetic  render seeded views of a pattern from a pinhole camera
-  extract-features  detector only: image directories -> dataset.bin
+  calibrate                full pipeline: [detect] -> dense init -> pyramid BA
+  report                   calibration report for a saved state
+  compare                  direction comparison of two saved states
+  compare-reconstructions  Umeyama-aligned pose and intrinsics comparison
+  fit-parametric           fit parametric models to a generic calibration
+  localization-accuracy    Monte-Carlo localization accuracy vs a reference
+  create-legends           legend images of the report visualizations
+  intersect-datasets       keep features present in all datasets
+  convert-dataset          dataset.bin <-> JSON
+  create-pattern           generate a star pattern (YAML, vector PDF, PNG)
+  render-synthetic         render seeded views of a pattern
+  extract-features         detector only: image directories -> dataset.bin
 
-The flags are the reference package's.  ``extract-features`` also takes
-``--device`` (default: the card; raises without one) and ``--dtype``
-(default float32) for the detector's images and refinement.
+Each command prints what its reference counterpart prints.  The commands
+that compute take ``--device`` (default: the card; they raise without one,
+never dropping to the CPU).  ``calibrate --dtype mixed`` (the default)
+runs the pipeline in float32 on the device and polishes in float64 on the
+CPU; ``float64`` runs on ``--device`` in float64 (the card's kernels take
+float32 only, so that is ``--device cpu``).  ``report`` works in the
+device's type: float32 on the card (the projection kernel), float64 on
+the CPU.
+The state-reading tools (compare, compare-reconstructions, fit-parametric,
+localization-accuracy) load the states in float64, as the reference does.
+Reports and legends are rasters written with OpenCV, not matplotlib.
+Not here yet: ``record``, ``stereo-depth``, ``visualize-calibration``,
+``refine-colmap``, ``compare-point-clouds``, ``export-colmap`` and
+``calibrate --live_directory`` (they need modules the port has not got).
 
-    python -m camera_calibration_torch.cli create-pattern --output_directory out
+For example, ``python -m camera_calibration_torch.cli calibrate
+--dataset_files dataset.bin --output_directory out --report``.
 """
 
 from __future__ import annotations
@@ -214,17 +235,755 @@ def cmd_render_synthetic(args):
     return 0
 
 
+def _dtype(name):
+    import torch
+
+    return torch.float64 if name == "float64" else torch.float32
+
+
+def _dense_initialization(dataset, model_kind, seed, cache_path):
+    """Per-camera initialization results: loaded from the ``.npz`` cache
+    at ``cache_path`` when it matches the dataset, else computed (and
+    saved there).  None when a camera fails."""
+    from camera_calibration_torch.init.dense_init import (
+        DenseInitializer, DenseInitOptions, load_dense_init, save_dense_init)
+    from camera_calibration_torch.init.noncentral_init import (
+        NoncentralDenseInitializer)
+
+    cache_file = cache_path and (cache_path if cache_path.endswith(".npz")
+                                 else cache_path + ".npz")
+    if cache_file and os.path.exists(cache_file):
+        try:
+            cached = load_dense_init(cache_file)
+        except Exception as e:  # a damaged cache is recomputed
+            print(f"[init] could not load cache {cache_file}: {e}")
+            cached = None
+        if cached is not None and (
+                len(cached) != dataset.num_cameras
+                or any(r is not None
+                       and len(r.image_used) != len(dataset.imagesets)
+                       for r in cached)):
+            print("[init] cache does not match the dataset; recomputing")
+            cached = None
+        if cached is not None:
+            print(f"[init] loaded dense initialization from {cache_file}")
+            return cached
+
+    initializer = (NoncentralDenseInitializer
+                   if model_kind == "noncentral_generic" else DenseInitializer)
+    results = []
+    for ci in range(dataset.num_cameras):
+        res = initializer(dataset, ci, DenseInitOptions(seed=seed)).run()
+        if res is None:
+            print(f"dense initialization failed for camera {ci}")
+            return None
+        print(f"[init] camera {ci}: {sum(res.image_used)}/"
+              f"{len(dataset.imagesets)} imagesets localized")
+        results.append(res)
+    if cache_file:
+        save_dense_init(cache_path, results)
+        print(f"[init] saved dense initialization to {cache_file}")
+    return results
+
+
+def _calibrate_options(args, num_pyramid_levels, polish_iterations):
+    from camera_calibration_torch import calibrate as cal
+
+    return cal.CalibrateOptions(
+        num_pyramid_levels=num_pyramid_levels,
+        approx_pixels_per_cell=args.approx_pixels_per_cell,
+        outlier_removal_factor=args.outlier_removal_factor,
+        final_iterations=args.final_iterations,
+        freeze=("points", "intrinsics") if args.localize_only else (),
+        lm_steps_per_call=args.lm_steps_per_call,
+        solver=args.solver,
+        block_chunk=args.block_chunk,
+        cg_warm_start=args.cg_warm_start,
+        proj_iterations=args.proj_iterations,
+        polish_iterations=polish_iterations,
+    )
+
+
+def cmd_calibrate(args):
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch.ba.dataset import build_per_camera_tables
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.init.state_init import (
+        build_ba_state, feature_id_to_point_index)
+    from camera_calibration_torch.io import dataset_bin, state_io
+
+    device = default_device(args.device)
+    # "mixed" (the default): the pipeline in float32 on the device, then
+    # float64 polish iterations on the CPU (calibrate.polish_float64)
+    dtype = _dtype(args.dtype)
+    polish_iterations = args.polish_iterations if args.dtype == "mixed" else 0
+
+    # 1. dataset: files merged into one joint dataset, or detection
+    if args.dataset_files:
+        dataset = dataset_bin.load_datasets(args.dataset_files)
+        n_merged = len(args.dataset_files.split(","))
+        if n_merged > 1:
+            print(f"[dataset] merged {n_merged} files: "
+                  f"{len(dataset.imagesets)} imagesets, "
+                  f"{len(dataset.known_geometries)} known geometries")
+    else:
+        if not (args.image_directories and args.pattern_files):
+            print("need --dataset_files or --image_directories + "
+                  "--pattern_files")
+            return 1
+        dataset = detect_dataset(args.image_directories.split(","),
+                                 args.pattern_files.split(","),
+                                 device=device, dtype=dtype)
+        os.makedirs(args.output_directory, exist_ok=True)
+        dataset_bin.save_dataset(
+            os.path.join(args.output_directory, "dataset.bin"), dataset)
+    os.makedirs(args.output_directory, exist_ok=True)
+    state_path = os.path.join(args.output_directory, "state")
+
+    # 2. the initial state: a saved one, or dense initialization
+    if args.state_directory:
+        state, used, fid_to_idx = state_io.load_ba_state(
+            args.state_directory, dtype=dtype, device=device)
+        if not fid_to_idx:
+            fid_to_idx = feature_id_to_point_index(dataset)
+        data = build_per_camera_tables(dataset, fid_to_idx, image_used=used,
+                                       dtype=dtype, device=device)
+        print(f"[resume] loaded state from {args.state_directory}")
+        # an explicit --model resamples (or converts) the loaded models to
+        # the coarsest level of the requested pyramid, which then runs
+        # whole; without it a resume continues at the loaded resolution
+        n_pyramid = 1
+        if args.model is not None and not args.localize_only:
+            resampled = cal.resample_models_if_necessary(
+                state, args.model, args.approx_pixels_per_cell,
+                args.num_pyramid_levels - 1)
+            if resampled is not state:
+                state = resampled
+                n_pyramid = args.num_pyramid_levels
+        if len(used) < state.rig_q_global.shape[0]:
+            used = list(used) + [True] * (
+                state.rig_q_global.shape[0] - len(used))
+        state, data, rep = cal.calibrate(
+            state, data, _calibrate_options(args, n_pyramid,
+                                            polish_iterations),
+            known_geometries=dataset.known_geometries,
+            feature_id_to_point_index=fid_to_idx,
+            state_output_path=state_path, image_used=used)
+        print("[calibrate] report:", {
+            k: v for k, v in rep.items() if not isinstance(v, list)})
+        state_io.save_ba_state(state_path, state, used, fid_to_idx)
+        return 0
+
+    model_kind = args.model or "central_generic"
+    # the grid pyramid runs for both grid model families; parametric
+    # models calibrate at their final parameterization directly
+    n_pyramid = (args.num_pyramid_levels
+                 if model_kind in ("central_generic", "noncentral_generic")
+                 else 1)
+    results = _dense_initialization(dataset, model_kind, args.seed,
+                                    args.dense_initialization_base_path)
+    if results is None:
+        return 1
+
+    # 3. the initial state at the coarsest pyramid resolution
+    full_res = cal.compute_grid_resolution(
+        dataset.image_sizes[0][0], dataset.image_sizes[0][1],
+        args.approx_pixels_per_cell)
+    coarse = cal.grid_resolution_for_level(n_pyramid - 1, *full_res)
+    state, data, fid_to_idx, image_used = build_ba_state(
+        dataset, results, (max(4, coarse[1]), max(4, coarse[0])),
+        dtype=dtype, model_kind=model_kind, device=device)
+
+    # 4. calibrate, 5. save the state and the report
+    state, data, rep = cal.calibrate(
+        state, data, _calibrate_options(args, n_pyramid, polish_iterations),
+        known_geometries=dataset.known_geometries,
+        feature_id_to_point_index=fid_to_idx,
+        state_output_path=state_path, image_used=image_used)
+    print("[calibrate] report:", {
+        k: v for k, v in rep.items() if not isinstance(v, list)})
+    state_io.save_ba_state(state_path, state, image_used, fid_to_idx)
+    if args.report:
+        from camera_calibration_torch.report.calibration_report import (
+            create_calibration_report)
+
+        metrics = create_calibration_report(
+            os.path.join(args.output_directory, "report"), state, data,
+            num_total_imagesets=len(dataset.imagesets))
+        for ci, m in enumerate(metrics):
+            print(f"[report] camera {ci}: median "
+                  f"{m['reprojection_error_median']:.4f} px, avg "
+                  f"{m['reprojection_error_average']:.4f} px")
+    return 0
+
+
+def cmd_report(args):
+    import torch
+
+    from camera_calibration_torch.ba.dataset import build_per_camera_tables
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.io import dataset_bin, state_io
+    from camera_calibration_torch.report.calibration_report import (
+        create_calibration_report)
+
+    device = default_device(args.device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    state, used, fid_map = state_io.load_ba_state(
+        args.state_directory, dtype=dtype, device=device)
+    dataset = dataset_bin.load_datasets(args.dataset_files)
+    data = build_per_camera_tables(dataset, fid_map, image_used=used,
+                                   dtype=dtype, device=device)
+    metrics = create_calibration_report(
+        args.output_directory, state, data,
+        num_total_imagesets=len(dataset.imagesets))
+    for ci, m in enumerate(metrics):
+        print(f"camera {ci}: {m}")
+    return 0
+
+
+def _load_state64(path, device):
+    """A saved state in float64 on ``device`` (default: the card)."""
+    import torch
+
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.io import state_io
+
+    return state_io.load_ba_state(path, dtype=torch.float64,
+                                  device=default_device(device))
+
+
+def _unproject_np(model, px):
+    """Unit directions (N, 3) and validity (N,) of NumPy pixels, computed
+    on the model's device, as NumPy arrays."""
+    import torch
+
+    from camera_calibration_torch.models import protocol
+
+    ref = protocol.model_tensor(model)
+    d, v = protocol.unproject(
+        model, torch.as_tensor(px, dtype=ref.dtype, device=ref.device))
+    return d.cpu().numpy(), v.cpu().numpy()
+
+
+def cmd_compare(args):
+    """Direction comparison of two calibrations (the reference's
+    tools/compare_calibrations.cc)."""
+    import numpy as np
+
+    state_a, _, _ = _load_state64(args.state_a, args.device)
+    state_b, _, _ = _load_state64(args.state_b, args.device)
+    for ci, (ma, mb) in enumerate(zip(state_a.intrinsics,
+                                      state_b.intrinsics)):
+        w, h = ma.width, ma.height
+        gx, gy = np.meshgrid(np.linspace(2, w - 3, 80),
+                             np.linspace(2, h - 3, 60))
+        px = np.stack([gx, gy], -1).reshape(-1, 2)
+        da, va = _unproject_np(ma, px)
+        db, vb = _unproject_np(mb, px)
+        m = va & vb
+        ang = np.degrees(np.arccos(np.clip(np.sum(da[m] * db[m], -1), -1, 1)))
+        print(f"camera {ci}: direction angle diff deg median "
+              f"{np.median(ang):.6f} max {ang.max():.6f}")
+    return 0
+
+
+def _svd_rotation(cov):
+    """Kabsch: the rotation ``U S Vᵀ`` nearest to the 3×3 ``cov``, with its
+    singular values and the reflection fix ``S``."""
+    import numpy as np
+
+    u, dvals, vt = np.linalg.svd(cov)
+    s_mat = np.eye(3)
+    if np.linalg.det(u) * np.linalg.det(vt) < 0:
+        s_mat[2, 2] = -1
+    return u @ s_mat @ vt, dvals, s_mat
+
+
+def _umeyama(a, b):
+    """(scale, R, t) of the similarity that maps points a onto b (N, 3)."""
+    import numpy as np
+
+    n = a.shape[0]
+    mu_a, mu_b = a.mean(0), b.mean(0)
+    ac, bc = a - mu_a, b - mu_b
+    r, dvals, s_mat = _svd_rotation(bc.T @ ac / n)
+    scale = float(np.trace(np.diag(dvals) @ s_mat)
+                  / max((ac ** 2).sum() / n, 1e-30))
+    return scale, r, mu_b - scale * r @ mu_a
+
+
+def cmd_compare_reconstructions(args):
+    """State-vs-state reconstruction comparison (the reference's
+    CompareReconstructions, tools/bundle_adjustment.cc:223-396).
+
+    Umeyama-aligns the two states' camera-0 centers with scale, estimates
+    the rotation between the two intrinsics from unprojected pixel-grid
+    directions, aligns the trajectories at their first image and prints
+    the scale, the center errors, the intrinsics rotation and the relative
+    endpoint difference; writes ``reconstructions_aligned_at_start.mlp``
+    beside the two states when their .obj exports exist."""
+    import numpy as np
+
+    from camera_calibration_torch.io.meshlab import (
+        MeshLabMeshInfo, write_meshlab_project)
+    from camera_calibration_torch.ops.se3 import quat_to_matrix
+
+    def global_tr_images(state):
+        # x_cam = R(cam_q_rig) (R(rig_q_global) x + rig_t_global) + cam_t_rig;
+        # global_T_image inverts the chain
+        rc = quat_to_matrix(state.cam_q_rig[0]).cpu().numpy()
+        tc = state.cam_t_rig[0].cpu().numpy()
+        rs, ts = [], []
+        for r_rig, t in zip(quat_to_matrix(state.rig_q_global).cpu().numpy(),
+                            state.rig_t_global.cpu().numpy()):
+            r_cg = rc @ r_rig
+            t_cg = rc @ t + tc
+            rs.append(r_cg.T)
+            ts.append(-r_cg.T @ t_cg)
+        return np.stack(rs), np.stack(ts)
+
+    state1, _, _ = _load_state64(args.state_a, args.device)
+    state2, _, _ = _load_state64(args.state_b, args.device)
+    if state1.rig_q_global.shape[0] != state2.rig_q_global.shape[0]:
+        print("error: the reconstructions must contain the same images "
+              f"({state1.rig_q_global.shape[0]} vs "
+              f"{state2.rig_q_global.shape[0]} poses)")
+        return 1
+
+    r1, c1 = global_tr_images(state1)
+    r2, c2 = global_tr_images(state2)
+    scale, r_align, t_align = _umeyama(c1, c2)
+    center_err = np.linalg.norm(scale * c1 @ r_align.T + t_align - c2,
+                                axis=-1)
+    print(f"umeyama scale (state_a -> state_b): {scale:.8f}")
+    print(f"pose center error after similarity alignment: median "
+          f"{np.median(center_err):.6g} mean {center_err.mean():.6g} "
+          f"max {center_err.max():.6g}")
+    c1s = scale * c1
+
+    # the intrinsics rotation from unprojected pixel-grid directions
+    ma, mb = state1.intrinsics[0], state2.intrinsics[0]
+    if ma.width != mb.width or ma.height != mb.height:
+        print("error: intrinsics image sizes differ")
+        return 1
+    step = 10
+    gx, gy = np.meshgrid(np.arange(0, ma.width, step) + 0.5,
+                         np.arange(0, ma.height, step) + 0.5)
+    px = np.stack([gx, gy], -1).reshape(-1, 2)
+    da, va = _unproject_np(ma, px)
+    db, vb = _unproject_np(mb, px)
+    valid = va & vb
+    da = da[valid] / np.linalg.norm(da[valid], axis=-1, keepdims=True)
+    db = db[valid] / np.linalg.norm(db[valid], axis=-1, keepdims=True)
+    # Kabsch: intrinsics1_r_intrinsics2 with da[i] = R db[i]
+    r_intr = _svd_rotation(da.T @ db)[0]
+    ang = np.degrees(np.arccos(np.clip(0.5 * (np.trace(r_intr) - 1.0),
+                                       -1.0, 1.0)))
+    resid = np.degrees(np.arccos(np.clip(np.sum(da * (db @ r_intr.T), -1),
+                                         -1.0, 1.0)))
+    print(f"intrinsics rotation between calibrations: {ang:.6f} deg; "
+          f"rotation-aligned direction error: median {np.median(resid):.6f} "
+          f"max {resid.max():.6f} deg")
+
+    # aligned at the first image: the endpoint difference relative to the
+    # mean trajectory length
+    def pose4(r, t):
+        m = np.eye(4)
+        m[:3, :3] = r
+        m[:3, 3] = t
+        return m
+
+    first1_tr_first2 = (pose4(r1[0], c1s[0]) @ pose4(r_intr, np.zeros(3))
+                        @ np.linalg.inv(pose4(r2[0], c2[0])))
+    back2_in_1 = first1_tr_first2 @ pose4(r2[-1], c2[-1])
+    endpoint_diff = float(np.linalg.norm(back2_in_1[:3, 3] - c1s[-1]))
+    traj1 = float(np.linalg.norm(np.diff(c1s, axis=0), axis=-1).sum())
+    traj2 = float(np.linalg.norm(np.diff(c2, axis=0), axis=-1).sum())
+    rel = endpoint_diff / max(0.5 * (traj1 + traj2), 1e-30)
+    print(f"relative endpoint difference: {100.0 * rel:.4f}%")
+
+    dirs = [os.path.abspath(args.state_a), os.path.abspath(args.state_b)]
+    objs = [os.path.join(d, name) for d in dirs
+            for name in ("points.yaml.obj", "rig_tr_global.yaml.obj")]
+    if all(os.path.exists(p) for p in objs):
+        g1 = np.eye(4)
+        g1[0, 0] = g1[1, 1] = g1[2, 2] = scale
+        meshes = [
+            MeshLabMeshInfo("SfM cloud 1", objs[0], g1),
+            MeshLabMeshInfo("SfM camera poses 1", objs[1], g1),
+            MeshLabMeshInfo("SfM cloud 2", objs[2], first1_tr_first2),
+            MeshLabMeshInfo("SfM camera poses 2", objs[3], first1_tr_first2),
+        ]
+        mlp = os.path.join(os.path.commonpath(dirs),
+                           "reconstructions_aligned_at_start.mlp")
+        write_meshlab_project(mlp, meshes)
+        print(f"wrote {mlp}")
+    return 0
+
+
+def cmd_localization_accuracy(args):
+    """Monte-Carlo localization accuracy of one calibration against
+    another (the reference's tools/localization_accuracy_test.cc)."""
+    import numpy as np
+
+    from camera_calibration_torch.init.p3p import ransac_p3p
+
+    state_gt, _, _ = _load_state64(args.gt_state, args.device)
+    state_cmp, _, _ = _load_state64(args.compared_state, args.device)
+    model_gt = state_gt.intrinsics[args.camera_index]
+    model_cmp = state_cmp.intrinsics[args.camera_index]
+    rng = np.random.default_rng(args.seed)
+    w, h = model_gt.width, model_gt.height
+    pos_errors, rot_errors = [], []
+    for _ in range(args.trials):
+        # 15 random pixels unprojected with the reference model at
+        # 1.5-2.5 m (world == the reference camera's frame)
+        px = rng.uniform([5, 5], [w - 5, h - 5], (15, 2))
+        d_gt, _ = _unproject_np(model_gt, px)
+        pts = d_gt * rng.uniform(1.5, 2.5, (15, 1))
+        d_cmp, _ = _unproject_np(model_cmp, px)
+        out = ransac_p3p(d_cmp, pts, max_iterations=20,
+                         seed=int(rng.integers(1 << 31)))
+        if out is None:
+            continue
+        r, t, _ = out
+        pos_errors.append(np.linalg.norm(t))
+        rot_errors.append(np.degrees(np.arccos(np.clip(
+            (np.trace(r) - 1) / 2, -1, 1))))
+    pos_errors = np.asarray(pos_errors)
+    rot_errors = np.asarray(rot_errors)
+    print(f"localization over {len(pos_errors)} trials: position error "
+          f"median {np.median(pos_errors):.6f} m, p90 "
+          f"{np.percentile(pos_errors, 90):.6f} m; rotation error median "
+          f"{np.median(rot_errors):.5f} deg")
+    return 0
+
+
+def cmd_fit_parametric(args):
+    """Fit parametric models to a generic calibration, with a residual
+    report (``report/fitting_report.py``)."""
+    from camera_calibration_torch.report.fitting_report import fit_and_report
+
+    state, _, _ = _load_state64(args.state_directory, args.device)
+    fit_and_report(state.intrinsics[args.camera_index],
+                   args.output_directory,
+                   model_names=tuple(args.models.split(",")),
+                   co_estimate_rotation=args.co_estimate_rotation)
+    return 0
+
+
+def legend_images(max_error_px):
+    """The three legend images of ``create-legends`` as BGR uint8
+    arrays: the error-direction hue wheel (hue = direction, value =
+    magnitude, white outside the unit disc), the mean-magnitude colour bar
+    (inferno over [0, max_error_px]) and the observation-direction key."""
+    import cv2
+    import numpy as np
+
+    from camera_calibration_torch.report import raster
+
+    n = 512
+    yy, xx = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n),
+                         indexing="ij")
+    r = np.hypot(xx, yy)
+    hue = (np.arctan2(yy, xx) + np.pi) / (2 * np.pi)
+    rgb = raster.hsv_to_rgb(np.stack([hue, np.ones_like(hue),
+                                      np.clip(r, 0, 1)], -1))
+    rgb[r > 1] = 1.0
+    wheel = raster.rgb_to_bgr8(rgb)
+
+    bar = raster.colormapped(np.tile(np.linspace(0, 1, 512), (48, 1)), 0, 1,
+                             "inferno")
+    bar = np.vstack([bar, np.full((32, 512, 3), 255, np.uint8)])
+    cv2.putText(bar, "0", (2, 72), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 0, 0))
+    label = f"{max_error_px:g} px (mean |reprojection error|)"
+    cv2.putText(bar, label, (200, 72), cv2.FONT_HERSHEY_SIMPLEX, 0.45,
+                (0, 0, 0))
+
+    key = np.full((80, 512, 3), 255, np.uint8)
+    cv2.putText(key, "observation directions:", (4, 28),
+                cv2.FONT_HERSHEY_SIMPLEX, 0.6, (0, 0, 0))
+    cv2.putText(key, "r = (x+1)/2   g = (y+1)/2   b = (z+1)/2", (4, 62),
+                cv2.FONT_HERSHEY_SIMPLEX, 0.6, (0, 0, 0))
+    return {"legend_error_directions.png": wheel,
+            "legend_error_magnitudes.png": bar,
+            "legend_observation_directions.png": key}
+
+
+def cmd_create_legends(args):
+    """Legend images of the report visualizations (the reference's
+    tools/create_legends.cc)."""
+    from camera_calibration_torch.report import raster
+
+    os.makedirs(args.output_directory, exist_ok=True)
+    for name, img in legend_images(args.max_error_px).items():
+        raster.write_png(os.path.join(args.output_directory, name), img)
+    print(f"wrote legends to {args.output_directory}")
+    return 0
+
+
+def cmd_intersect_datasets(args):
+    """Keep only the features detected in all datasets within a pixel
+    threshold, matched by filename (the reference's
+    intersect_datasets.cc)."""
+    import numpy as np
+
+    from camera_calibration_torch.io import dataset_bin
+
+    datasets = [dataset_bin.load_dataset(p) for p in args.dataset_files]
+    base = datasets[0]
+
+    def key_of(s, i):
+        return s.filenames[0] if s.filenames else str(i)
+
+    others_by_name = [{key_of(s, i): s for i, s in enumerate(d.imagesets)}
+                      for d in datasets[1:]]
+    kept = dropped = 0
+    for i, s in enumerate(base.imagesets):
+        partners = [m.get(key_of(s, i)) for m in others_by_name]
+        for ci in range(base.num_cameras):
+            out_feats = []
+            for f in s.features[ci]:
+                ok = all(
+                    p_set is not None and any(
+                        g.feature_id == f.feature_id
+                        and np.linalg.norm(np.asarray(g.xy)
+                                           - np.asarray(f.xy))
+                        <= args.threshold
+                        for g in p_set.features[ci])
+                    for p_set in partners)
+                if ok:
+                    out_feats.append(f)
+                    kept += 1
+                else:
+                    dropped += 1
+            s.features[ci] = out_feats
+    dataset_bin.save_dataset(args.output, base)
+    print(f"kept {kept}, dropped {dropped}; wrote {args.output}")
+    return 0
+
+
+def cmd_convert_dataset(args):
+    """Convert dataset.bin <-> the JSON interchange format (the
+    reference's convert_dataset.cc)."""
+    import json
+
+    import numpy as np
+
+    from camera_calibration_torch.ba.dataset import (
+        Dataset, Imageset, KnownGeometry, PointFeature)
+    from camera_calibration_torch.io import dataset_bin
+
+    if args.input.endswith(".bin"):
+        ds = dataset_bin.load_dataset(args.input)
+        doc = {
+            "num_cameras": ds.num_cameras,
+            "image_sizes": [list(s) for s in ds.image_sizes],
+            "imagesets": [
+                {
+                    "filename": (s.filenames[0] if s.filenames else ""),
+                    "features": [
+                        [{"x": float(f.xy[0]), "y": float(f.xy[1]),
+                          "id": int(f.feature_id)} for f in cam_feats]
+                        for cam_feats in s.features
+                    ],
+                }
+                for s in ds.imagesets
+            ],
+            "known_geometries": [
+                {
+                    "cell_length_in_meters": g.cell_length_in_meters,
+                    "feature_id_to_position": {
+                        str(k): list(v)
+                        for k, v in g.feature_id_to_position.items()},
+                }
+                for g in ds.known_geometries
+            ],
+        }
+        with open(args.output, "w") as f:
+            json.dump(doc, f)
+    else:
+        with open(args.input) as f:
+            doc = json.load(f)
+        ds = Dataset(
+            num_cameras=doc["num_cameras"],
+            image_sizes=[tuple(s) for s in doc["image_sizes"]],
+            imagesets=[
+                Imageset(
+                    features=[
+                        [PointFeature(xy=np.array([f["x"], f["y"]]),
+                                      feature_id=f["id"])
+                         for f in cam_feats]
+                        for cam_feats in s["features"]
+                    ],
+                    filenames=[s.get("filename", "")],
+                )
+                for s in doc["imagesets"]
+            ],
+            known_geometries=[
+                KnownGeometry(
+                    cell_length_in_meters=g["cell_length_in_meters"],
+                    feature_id_to_position={
+                        int(k): tuple(v)
+                        for k, v in g["feature_id_to_position"].items()},
+                )
+                for g in doc["known_geometries"]
+            ],
+        )
+        dataset_bin.save_dataset(args.output, ds)
+    print(f"converted {args.input} -> {args.output}")
+    return 0
+
+
 def build_parser():
-    parser = argparse.ArgumentParser(prog="camera-calibration-torch")
+    parser = argparse.ArgumentParser(
+        prog="camera-calibration-torch",
+        description="generic camera calibration on an NVIDIA card")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    def device_flag(p):
+        p.add_argument("--device", default=None,
+                       help="device to compute on (default: the card)")
+
+    p = sub.add_parser(
+        "calibrate", help="full calibration pipeline",
+        description="Full calibration pipeline.  The reference's "
+                    "--live_directory is not here: it needs the UI, which "
+                    "the port has not got yet.")
+    p.add_argument("--image_directories", help="comma-separated, one per camera")
+    p.add_argument("--pattern_files", help="comma-separated pattern YAMLs")
+    p.add_argument("--dataset_files", help="existing dataset.bin")
+    p.add_argument("--output_directory", required=True)
+    p.add_argument(
+        "--model", default=None,
+        choices=["central_generic", "noncentral_generic",
+                 "central_thin_prism_fisheye", "central_opencv",
+                 "central_radial"],
+        help="camera model (default central_generic for fresh "
+             "calibrations; on --state_directory resume, passing this "
+             "explicitly resamples/converts the loaded state to the "
+             "requested model and resolution and re-runs the pyramid)")
+    p.add_argument("--num_pyramid_levels", type=int, default=3)
+    p.add_argument("--approx_pixels_per_cell", type=int, default=25)
+    p.add_argument("--outlier_removal_factor", type=float, default=8.0)
+    p.add_argument("--final_iterations", type=int, default=100)
+    p.add_argument(
+        "--lm_steps_per_call", type=int, default=1,
+        help="LM iterations per call; >1 checkpoints every k-th iteration")
+    p.add_argument(
+        "--dtype", default="mixed", choices=["mixed", "float32", "float64"],
+        help="mixed (default) runs the pipeline in float32 on the device "
+             "(the CUDA kernels on the card) and finishes with float64 "
+             "polish iterations on the CPU; float64 runs everything in "
+             "float64 on --device (the card's kernels take float32 only: "
+             "use --device cpu); float32 skips the polish")
+    p.add_argument(
+        "--polish_iterations", type=int, default=10,
+        help="float64 CPU LM iterations after the float32 pipeline (mixed "
+             "dtype only)")
+    p.add_argument(
+        "--solver", default="auto",
+        choices=["auto", "schur", "schur_poses", "schur_direct",
+                 "schur_direct_points", "pcg"],
+        help="BA solver mode: schur/schur_poses = point/pose elimination + "
+             "PCG on the reduced system; schur_direct[_points] = explicit "
+             "reduced system + dense Cholesky; pcg = full-system PCG")
+    p.add_argument(
+        "--block_chunk", type=int, default=None,
+        help="evaluate residual/Jacobian blocks in chunks of this many "
+             "observations to bound memory")
+    p.add_argument(
+        "--cg_warm_start", action="store_true",
+        help="warm-start each PCG solve from the previous LM step (needs "
+             "--lm_steps_per_call > 1 and a PCG solver mode)")
+    p.add_argument(
+        "--proj_iterations", type=int, default=4,
+        help="projection LM iterations per blocks sweep (warm-started)")
+    p.add_argument("--report", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--state_directory",
+        help="resume from a saved state instead of dense initialization")
+    p.add_argument(
+        "--dense_initialization_base_path",
+        help="cache the dense initialization here (.npz): loaded when "
+             "present so re-runs skip the init phase, saved after a fresh "
+             "init")
+    p.add_argument(
+        "--localize_only", action="store_true",
+        help="freeze intrinsics and pattern points; optimize poses only")
+    device_flag(p)
+    p.set_defaults(func=cmd_calibrate)
+
+    p = sub.add_parser("report", help="report for a saved state")
+    p.add_argument("--state_directory", required=True)
+    p.add_argument("--dataset_files", required=True)
+    p.add_argument("--output_directory", required=True)
+    device_flag(p)
+    p.set_defaults(func=cmd_report)
+
+    p = sub.add_parser("compare", help="compare two calibrations")
+    p.add_argument("state_a")
+    p.add_argument("state_b")
+    device_flag(p)
+    p.set_defaults(func=cmd_compare)
+
+    p = sub.add_parser(
+        "compare-reconstructions",
+        help="Umeyama-aligned pose + intrinsics comparison of two saved "
+             "states (the reference's CompareReconstructions tool)")
+    p.add_argument("state_a")
+    p.add_argument("state_b")
+    device_flag(p)
+    p.set_defaults(func=cmd_compare_reconstructions)
+
+    p = sub.add_parser("fit-parametric",
+                       help="fit parametric models to a generic calibration")
+    p.add_argument("--state_directory", required=True)
+    p.add_argument("--output_directory", required=True)
+    p.add_argument("--camera_index", type=int, default=0)
+    p.add_argument("--co_estimate_rotation", action="store_true")
+    p.add_argument(
+        "--models",
+        default="central_thin_prism_fisheye,central_opencv,central_radial")
+    device_flag(p)
+    p.set_defaults(func=cmd_fit_parametric)
+
+    p = sub.add_parser("create-legends",
+                       help="legend images for the report visualizations")
+    p.add_argument("--output_directory", required=True)
+    p.add_argument("--max_error_px", type=float, default=1.0)
+    p.set_defaults(func=cmd_create_legends)
+
+    p = sub.add_parser("intersect-datasets",
+                       help="keep features present in all datasets")
+    p.add_argument("dataset_files", nargs="+")
+    p.add_argument("--output", required=True)
+    p.add_argument("--threshold", type=float, default=1.0)
+    p.set_defaults(func=cmd_intersect_datasets)
+
+    p = sub.add_parser("convert-dataset", help="dataset.bin <-> JSON")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.set_defaults(func=cmd_convert_dataset)
+
+    p = sub.add_parser(
+        "localization-accuracy",
+        help="Monte-Carlo localization accuracy of a calibration vs GT")
+    p.add_argument("--gt_state", required=True)
+    p.add_argument("--compared_state", required=True)
+    p.add_argument("--camera_index", type=int, default=0)
+    p.add_argument("--trials", type=int, default=10000,
+                   help="Monte-Carlo trials (the reference's default)")
+    p.add_argument("--seed", type=int, default=0)
+    device_flag(p)
+    p.set_defaults(func=cmd_localization_accuracy)
 
     p = sub.add_parser("extract-features", help="detector only")
     p.add_argument("--image_directories", required=True)
     p.add_argument("--pattern_files", required=True)
     p.add_argument("--output", required=True, help="output dataset.bin")
-    p.add_argument("--device", default=None,
-                   help="device of the detector's images and refinement "
-                        "(default: the card)")
+    device_flag(p)
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.set_defaults(func=cmd_extract_features)

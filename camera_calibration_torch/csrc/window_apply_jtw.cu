@@ -35,6 +35,7 @@ struct JtwOp {
   static constexpr int kPerKnot = K;
   static constexpr int kPerObs = 2;  // ws[n, 0], ws[n, 1]
   static constexpr bool kUsesWeights = false;
+  static constexpr int kPrepRows = 16 * K;
 
   // rows (slot*K + j) become j_win[0, slot, j]*ws0 + j_win[1, slot, j]*ws1
   template <int S>
@@ -131,11 +132,13 @@ extern "C" int cct_window_apply_jtw_blocks_per_sm(int k, int gh, int gw,
 extern "C" long long cct_window_apply_jtw_smem_bytes(int k, int gh, int gw,
                                                      int elem_bytes) {
   if (elem_bytes == 4) {
-    if (k == 2) return cct::partial_smem_bytes<2, float>(gh, gw, 2);
-    if (k == 5) return cct::partial_smem_bytes<5, float>(gh, gw, 5);
+    if (k == 2) return cct::partial_smem_bytes<2, JtwOp<2>, float>(gh, gw);
+    if (k == 5) return cct::partial_smem_bytes<5, JtwOp<5>, float>(gh, gw);
   } else if (elem_bytes == 2) {
-    if (k == 2) return cct::partial_smem_bytes<2, __nv_bfloat16>(gh, gw, 2);
-    if (k == 5) return cct::partial_smem_bytes<5, __nv_bfloat16>(gh, gw, 5);
+    if (k == 2)
+      return cct::partial_smem_bytes<2, JtwOp<2>, __nv_bfloat16>(gh, gw);
+    if (k == 5)
+      return cct::partial_smem_bytes<5, JtwOp<5>, __nv_bfloat16>(gh, gw);
   }
   return 0;
 }
@@ -144,11 +147,11 @@ extern "C" long long cct_window_apply_jtw_smem_bytes(int k, int gh, int gw,
 extern "C" int cct_window_apply_jtw_band_rows(int k, int gh, int gw,
                                               int elem_bytes) {
   if (elem_bytes == 4) {
-    if (k == 2) return cct::band_rows<2, float>(gh, gw, 2);
-    if (k == 5) return cct::band_rows<5, float>(gh, gw, 5);
+    if (k == 2) return cct::band_rows<2, JtwOp<2>, float>(gh, gw);
+    if (k == 5) return cct::band_rows<5, JtwOp<5>, float>(gh, gw);
   } else if (elem_bytes == 2) {
-    if (k == 2) return cct::band_rows<2, __nv_bfloat16>(gh, gw, 2);
-    if (k == 5) return cct::band_rows<5, __nv_bfloat16>(gh, gw, 5);
+    if (k == 2) return cct::band_rows<2, JtwOp<2>, __nv_bfloat16>(gh, gw);
+    if (k == 5) return cct::band_rows<5, JtwOp<5>, __nv_bfloat16>(gh, gw);
   }
   return 0;
 }

@@ -10,11 +10,17 @@
 // What it computes, for knot (h, w) = (by+y, bx+x) inside the grid:
 //   B[h, w, j, l] += w_n * sum_i j_win[i, (y, x, j), n] * j_win[i, (y, x, l), n]
 // over all observations n; the upper pairs (j <= l) are accumulated and
-// mirrored.  K = 2 and K = 5 are instantiated, for a float32 j_win only:
-// the LM step builds the preconditioner from the float32 blocks.
+// mirrored.  K = 2 and K = 5 are instantiated, each for a float32 and a
+// bfloat16 j_win (the reference kernel widens a bf16 j_win, :113, and
+// forms the products in float32).  A bf16 tile is staged in half the
+// bytes and widened, all 32K rows, into a float32 area; from there the
+// products are those of the float32 kernel on the widened values (the sums
+// split over as many blocks as the bf16 plan's occupancy gives, so the last
+// bits may differ from the float32 kernel's).  The LM step builds the
+// preconditioner from the float32 blocks, as the reference's does.
 //
 // What bounds it on an H100: its least time is set by bytes (32K j_win
-// floats read once per observation, 16 * K(K+1)/2 * 4 FLOP); on the bench
+// elements read once per observation, 16 * K(K+1)/2 * 4 FLOP); on the bench
 // problem the owner visits of clustered tiles set the time, as for
 // window_apply_jtw.  The design is the deterministic two-pass window
 // reduction of window_reduce.cuh: a cp.async ring of tiles in shared
@@ -36,6 +42,8 @@ struct BlockDiagOp {
   // writes them there; otherwise accumulate forms them from j_win and w.
   static constexpr bool kFolded = kPerKnot <= 2 * K;
   static constexpr bool kUsesWeights = !kFolded;
+  // a bf16 tile is widened whole: the products read both halves
+  static constexpr int kPrepRows = 32 * K;
 
   // row of product r of the slot whose rows start at f0
   __device__ static int row(int f0, int r) {
@@ -69,6 +77,20 @@ struct BlockDiagOp {
     }
   }
 
+  // widen the slot's 2K rows of a staged bf16 column `in` (row stride SI)
+  // into the float32 column `col` (row stride S), then prepare them there
+  template <int SI, int S>
+  __device__ static void prepare_from(const __nv_bfloat16* in, float* col,
+                                      int slot, const float* w) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int f = slot * K + j;
+      col[f * S] = cct::to_float(in[f * SI]);
+      col[(16 * K + f) * S] = cct::to_float(in[(16 * K + f) * SI]);
+    }
+    prepare<S>(col, slot, w);
+  }
+
   template <int S>
   __device__ static void accumulate(float* a, const float* col, int f0,
                                     const float* w) {
@@ -97,61 +119,90 @@ struct BlockDiagOp {
   }
 };
 
+template <class E>
+cudaError_t launch(const void* jwin, const int* b, int base_sn, int base_sc,
+                   const float* w, int n, int gh, int gw, int k,
+                   int band_rows, float* p, int nblocks, float* o,
+                   cudaStream_t s) {
+  const E* j = static_cast<const E*>(jwin);
+  if (k == 2)
+    return cct::launch_window_reduce<2, BlockDiagOp<2>, E>(
+        j, b, base_sn, base_sc, w, n, gh, gw, band_rows, p, nblocks, o, s);
+  if (k == 5)
+    return cct::launch_window_reduce<5, BlockDiagOp<5>, E>(
+        j, b, base_sn, base_sc, w, n, gh, gw, band_rows, p, nblocks, o, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// elem_bytes: the element size of j_win; only 4 (float32) is taken.
+// elem_bytes: 4 for a float32 j_win, 2 for a bfloat16 one (in every entry
+// below).
 extern "C" int cct_window_block_diag(const void* jwin, const void* base,
                                      int base_sn, int base_sc, const void* w,
                                      int n, int gh, int gw, int k,
                                      int elem_bytes, int band_rows,
                                      void* partial, int nblocks, void* out,
                                      void* stream) {
-  if (elem_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
-  const float* j = static_cast<const float*>(jwin);
   const int* b = static_cast<const int*>(base);
   const float* wt = static_cast<const float*>(w);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 2)
-    return static_cast<int>(cct::launch_window_reduce<2, BlockDiagOp<2>, float>(
-        j, b, base_sn, base_sc, wt, n, gh, gw, band_rows, p, nblocks, o, s));
-  if (k == 5)
-    return static_cast<int>(cct::launch_window_reduce<5, BlockDiagOp<5>, float>(
-        j, b, base_sn, base_sc, wt, n, gh, gw, band_rows, p, nblocks, o, s));
+  if (elem_bytes == 4)
+    return static_cast<int>(launch<float>(jwin, b, base_sn, base_sc, wt, n,
+                                          gh, gw, k, band_rows, p, nblocks,
+                                          o, s));
+  if (elem_bytes == 2)
+    return static_cast<int>(launch<__nv_bfloat16>(
+        jwin, b, base_sn, base_sc, wt, n, gh, gw, k, band_rows, p, nblocks,
+        o, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-// The entries below take the element size of j_win like
-// window_apply_jtw's; only 4 (float32) is built, anything else gives 0.
 
 // Blocks of the partial pass that fit on one SM at once (0 if none does).
 extern "C" int cct_window_block_diag_blocks_per_sm(int k, int gh, int gw,
                                                    int elem_bytes) {
-  if (elem_bytes != 4) return 0;
-  if (k == 2)
-    return cct::window_reduce_blocks_per_sm<2, BlockDiagOp<2>, float>(gh, gw);
-  if (k == 5)
-    return cct::window_reduce_blocks_per_sm<5, BlockDiagOp<5>, float>(gh, gw);
+  if (elem_bytes == 4) {
+    if (k == 2)
+      return cct::window_reduce_blocks_per_sm<2, BlockDiagOp<2>, float>(gh, gw);
+    if (k == 5)
+      return cct::window_reduce_blocks_per_sm<5, BlockDiagOp<5>, float>(gh, gw);
+  } else if (elem_bytes == 2) {
+    if (k == 2)
+      return cct::window_reduce_blocks_per_sm<2, BlockDiagOp<2>,
+                                              __nv_bfloat16>(gh, gw);
+    if (k == 5)
+      return cct::window_reduce_blocks_per_sm<5, BlockDiagOp<5>,
+                                              __nv_bfloat16>(gh, gw);
+  }
   return 0;
 }
 
 // Shared memory of one block of the partial pass (0 for another K).
 extern "C" long long cct_window_block_diag_smem_bytes(int k, int gh, int gw,
                                                       int elem_bytes) {
-  if (elem_bytes != 4) return 0;
-  if (k == 2)
-    return cct::partial_smem_bytes<2, float>(gh, gw, BlockDiagOp<2>::kPerKnot);
-  if (k == 5)
-    return cct::partial_smem_bytes<5, float>(gh, gw, BlockDiagOp<5>::kPerKnot);
+  if (elem_bytes == 4) {
+    if (k == 2) return cct::partial_smem_bytes<2, BlockDiagOp<2>, float>(gh, gw);
+    if (k == 5) return cct::partial_smem_bytes<5, BlockDiagOp<5>, float>(gh, gw);
+  } else if (elem_bytes == 2) {
+    if (k == 2)
+      return cct::partial_smem_bytes<2, BlockDiagOp<2>, __nv_bfloat16>(gh, gw);
+    if (k == 5)
+      return cct::partial_smem_bytes<5, BlockDiagOp<5>, __nv_bfloat16>(gh, gw);
+  }
   return 0;
 }
 
 // Grid rows per band of the partial pass (0 where one row does not fit).
 extern "C" int cct_window_block_diag_band_rows(int k, int gh, int gw,
                                                int elem_bytes) {
-  if (elem_bytes != 4) return 0;
-  if (k == 2) return cct::band_rows<2, float>(gh, gw, BlockDiagOp<2>::kPerKnot);
-  if (k == 5) return cct::band_rows<5, float>(gh, gw, BlockDiagOp<5>::kPerKnot);
+  if (elem_bytes == 4) {
+    if (k == 2) return cct::band_rows<2, BlockDiagOp<2>, float>(gh, gw);
+    if (k == 5) return cct::band_rows<5, BlockDiagOp<5>, float>(gh, gw);
+  } else if (elem_bytes == 2) {
+    if (k == 2) return cct::band_rows<2, BlockDiagOp<2>, __nv_bfloat16>(gh, gw);
+    if (k == 5) return cct::band_rows<5, BlockDiagOp<5>, __nv_bfloat16>(gh, gw);
+  }
   return 0;
 }

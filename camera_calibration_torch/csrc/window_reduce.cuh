@@ -26,10 +26,10 @@
 //      (0 <= h - by < 4); the same for columns.  Meanwhile the other
 //      threads fold each observation's weights into its staged column
 //      (Op::prepare), so that a visit reads fewer values.  A float32 tile
-//      is prepared in place.  A bfloat16 tile (the CG matvecs' copies of
-//      j_win) is staged as bf16, half the bytes, and prepared into one
-//      float32 area beside the ring (Op::prepare_from), which the visits
-//      read: every sum stays float32.
+//      is prepared in place.  A bfloat16 tile is staged as bf16, half the
+//      bytes, and prepared into one float32 area beside the ring
+//      (Op::prepare_from; Op::kPrepRows rows), which the visits read:
+//      every sum stays float32.
 //    - Each knot has one owner thread for the tile (knot i*NT + lane*NW +
 //      warp: neighbouring knots, which a clustered tile hits together, go
 //      to different warps).  The owner visits the set bits of row mask AND
@@ -87,7 +87,8 @@ struct Tile {
   // Row stride, in floats, of the prepared (float32) j_win rows: rows stay
   // 16-byte aligned for cp.async and start 4 banks apart.
   static constexpr int kStride = kObs + 4;
-  // Whether staged rows are bf16 and prepared into a float32 area apart.
+  // Whether staged rows are bf16 and prepared into a float32 area apart
+  // (prep_floats).
   static constexpr bool kWiden = !std::is_same<E, float>::value;
   // Row stride, in elements, of the staged j_win rows (16-byte aligned).
   static constexpr int kStrideE = kWiden ? kObs + 8 : kStride;
@@ -100,10 +101,13 @@ struct Tile {
       32 * K * kStrideE * static_cast<int>(sizeof(E)) / 4;
   // One stage: 32K j_win rows, two per-observation floats, two base ints.
   static constexpr int kStageFloats = kRowsFloats + 4 * kObs;
-  // The float32 area a bf16 tile is prepared into: the 16K rows that the
-  // visits read (JtW's prepared values).
-  static constexpr int kPrepFloats = kWiden ? 16 * K * kStride : 0;
 };
+
+// The float32 area a bf16 tile is prepared into: the Op::kPrepRows rows
+// that the visits read (JtW: its 16K prepared values; the block diagonal:
+// all 32K rows widened).  None for a float32 tile.
+template <class Tl, class Op>
+constexpr int prep_floats = Tl::kWiden ? Op::kPrepRows * Tl::kStride : 0;
 
 // Warps per block of the sum pass.
 constexpr int kSumWarps = 16;
@@ -113,39 +117,39 @@ constexpr size_t kMaxSmemBytes = 232448;
 
 // Shared memory of one partial-pass block in a layout: the stages, a bf16
 // tile's float32 area, the row and column masks ((gh + gw) * kWords
-// words), the accumulator grid.
-template <int K, bool kRing, class E>
-inline size_t layout_smem_bytes(int gh, int gw, int per_knot) {
+// words), the accumulator grid of Op::kPerKnot values a knot.
+template <int K, class Op, bool kRing, class E>
+inline size_t layout_smem_bytes(int gh, int gw) {
   using Tl = Tile<K, kRing, E>;
   return sizeof(float) *
          (static_cast<size_t>(Tl::kStages) * Tl::kStageFloats +
-          Tl::kPrepFloats + static_cast<size_t>(gh + gw) * Tl::kWords +
-          static_cast<size_t>(gh) * gw * per_knot);
+          prep_floats<Tl, Op> + static_cast<size_t>(gh + gw) * Tl::kWords +
+          static_cast<size_t>(gh) * gw * Op::kPerKnot);
 }
 
 // The ring wherever it fits in one block.
-template <int K, class E>
-inline bool use_ring(int gh, int gw, int per_knot) {
-  return layout_smem_bytes<K, true, E>(gh, gw, per_knot) <= kMaxSmemBytes;
+template <int K, class Op, class E>
+inline bool use_ring(int gh, int gw) {
+  return layout_smem_bytes<K, Op, true, E>(gh, gw) <= kMaxSmemBytes;
 }
 
 // Shared memory of one partial-pass block that keeps `rows` grid rows, in
 // the layout it takes there.
-template <int K, class E>
-inline size_t band_smem_bytes(int rows, int gw, int per_knot) {
-  return use_ring<K, E>(rows, gw, per_knot)
-             ? layout_smem_bytes<K, true, E>(rows, gw, per_knot)
-             : layout_smem_bytes<K, false, E>(rows, gw, per_knot);
+template <int K, class Op, class E>
+inline size_t band_smem_bytes(int rows, int gw) {
+  return use_ring<K, Op, E>(rows, gw)
+             ? layout_smem_bytes<K, Op, true, E>(rows, gw)
+             : layout_smem_bytes<K, Op, false, E>(rows, gw);
 }
 
 // Rows per band: ceil(gh / nb) for the fewest bands nb whose compact layout
 // fits one block; gh where the whole grid fits.  0 where one grid row does
 // not fit.  Mirrored by reduction_plan in ba/window_cuda.py.
-template <int K, class E>
-inline int band_rows(int gh, int gw, int per_knot) {
+template <int K, class Op, class E>
+inline int band_rows(int gh, int gw) {
   for (int nb = 1; nb <= gh; ++nb) {
     const int rows = (gh + nb - 1) / nb;
-    if (layout_smem_bytes<K, false, E>(rows, gw, per_knot) <= kMaxSmemBytes)
+    if (layout_smem_bytes<K, Op, false, E>(rows, gw) <= kMaxSmemBytes)
       return rows;
   }
   return 0;
@@ -154,11 +158,11 @@ inline int band_rows(int gh, int gw, int per_knot) {
 // Shared memory of one partial-pass block at this grid (its band's rows, in
 // its layout; one row in the compact layout where even that does not fit).
 // Mirrored by reduction_smem_bytes in ba/window_cuda.py.
-template <int K, class E>
-inline size_t partial_smem_bytes(int gh, int gw, int per_knot) {
-  const int rows = band_rows<K, E>(gh, gw, per_knot);
-  return rows > 0 ? band_smem_bytes<K, E>(rows, gw, per_knot)
-                  : layout_smem_bytes<K, false, E>(1, gw, per_knot);
+template <int K, class Op, class E>
+inline size_t partial_smem_bytes(int gh, int gw) {
+  const int rows = band_rows<K, Op, E>(gh, gw);
+  return rows > 0 ? band_smem_bytes<K, Op, E>(rows, gw)
+                  : layout_smem_bytes<K, Op, false, E>(1, gw);
 }
 
 __device__ __forceinline__ unsigned shared_addr(const void* p) {
@@ -266,13 +270,14 @@ __device__ __forceinline__ void stage_tile(float* st, const E* jwin,
 
 // Op supplies
 // - kPerKnot: values per knot; kPerObs: floats per observation in per_obs
-//   (at most 2); kUsesWeights: whether accumulate reads them;
+//   (at most 2); kUsesWeights: whether accumulate reads them; kPrepRows:
+//   the float32 rows of a column that prepare_from writes;
 // - prepare<S>(col, slot, ws): rewrites in place the rows of window slot
 //   `slot` (0..15) of one observation's staged float32 column (col points
 //   at it, row stride S) so that accumulate reads fewer values;
 // - for a bf16 j_win, prepare_from<SI, S>(in, col, slot, ws): the same
 //   from the staged bf16 column `in` (row stride SI) into the float32
-//   column `col` (row stride S), within the first 16K rows;
+//   column `col` (row stride S), within its first kPrepRows rows;
 // - accumulate<S>(a, col, f0, ws): adds the observation's prepared
 //   contribution to window slot f0 / K (f0 = (y*4 + x)*K) to a[kPerKnot];
 // - store(out, knot, r, v): writes value r of a knot to the output.
@@ -301,7 +306,7 @@ window_partial_kernel(const E* __restrict__ jwin,
   float* ring = smem;
   // a bf16 tile's prepared float32 rows (none for float32 tiles)
   float* prep = ring + P * Q;
-  unsigned* rowm = reinterpret_cast<unsigned*>(prep + Tl::kPrepFloats);
+  unsigned* rowm = reinterpret_cast<unsigned*>(prep + prep_floats<Tl, Op>);
   unsigned* colm = rowm + band_rows * W;
   float* acc = reinterpret_cast<float*>(colm + gw * W);
   for (int i = threadIdx.x; i < knots * R; i += NT) acc[i] = 0.0f;
@@ -451,7 +456,7 @@ window_sum_kernel(const float* __restrict__ partial, int nblocks, int knots,
 
 template <int K, class Op, bool kRing, class E>
 cudaError_t set_partial_smem(int rows, int gw, size_t* smem) {
-  *smem = layout_smem_bytes<K, kRing, E>(rows, gw, Op::kPerKnot);
+  *smem = layout_smem_bytes<K, Op, kRing, E>(rows, gw);
   if (*smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(window_partial_kernel<K, Op, kRing, E>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -475,9 +480,9 @@ int blocks_per_sm(int rows, int gw) {
 // none does).
 template <int K, class Op, class E>
 int window_reduce_blocks_per_sm(int gh, int gw) {
-  const int rows = band_rows<K, E>(gh, gw, Op::kPerKnot);
+  const int rows = band_rows<K, Op, E>(gh, gw);
   if (rows == 0) return 0;
-  return use_ring<K, E>(rows, gw, Op::kPerKnot)
+  return use_ring<K, Op, E>(rows, gw)
              ? blocks_per_sm<K, Op, true, E>(rows, gw)
              : blocks_per_sm<K, Op, false, E>(rows, gw);
 }
@@ -507,7 +512,7 @@ cudaError_t launch_window_reduce(const E* jwin, const int* base,
                                  float* out, cudaStream_t stream) {
   if (rows < 1 || rows > gh || nblocks < 1) return cudaErrorInvalidValue;
   cudaError_t err =
-      use_ring<K, E>(rows, gw, Op::kPerKnot)
+      use_ring<K, Op, E>(rows, gw)
           ? launch_partial<K, Op, true, E>(jwin, base, base_sn, base_sc,
                                            per_obs, n, gh, gw, rows, partial,
                                            nblocks, stream)

@@ -803,7 +803,8 @@ def save_dense_init(path, results):
 
 def load_dense_init(path):
     """Load results saved by save_dense_init.  Returns a list of
-    per-camera DenseInitResult (None for a camera without one)."""
+    per-camera DenseInitResult or NoncentralInitResult (None for a camera
+    without one)."""
     with np.load(path if str(path).endswith(".npz") else str(path) + ".npz",
                  allow_pickle=False) as z:
         n = int(z["num_cameras"])
@@ -826,9 +827,16 @@ def load_dense_init(path):
                 image_size=tuple(int(v) for v in z[p + "image_size"]),
             )
             if kind == "noncentral":
-                raise ValueError(
-                    f"{path}: camera {ci} holds a noncentral initialization, "
-                    "which this package does not load")
+                from camera_calibration_torch.init.noncentral_init import (
+                    NoncentralInitResult,
+                )
+
+                out.append(NoncentralInitResult(
+                    point_sum=z[p + "point_sum"],
+                    point_sq_sum=z[p + "point_sq_sum"],
+                    point_count=z[p + "point_count"],
+                    **common,
+                ))
             else:
                 out.append(DenseInitResult(
                     direction_sum=z[p + "direction_sum"],

@@ -32,6 +32,14 @@ def is_grid_model(model) -> bool:
     return isinstance(model, GRID_MODELS)
 
 
+def model_tensor(model):
+    """A tensor of the model: its device and float type are the model's."""
+    for name in ("grid", "direction_grid", "params"):
+        if hasattr(model, name):
+            return getattr(model, name)
+    raise TypeError(f"not a camera model: {type(model).__name__}")
+
+
 def intrinsics_tangent_zero(model):
     require_supported(model)
     if isinstance(model, ncg.NoncentralGenericModel):

@@ -16,6 +16,11 @@ ThinPrismFisheye, OpenCV or Radial camera.
 (dense initialization, initial state, calibration): a pinhole camera's
 views of a square board, with the draws of the reference package's
 ``tests/test_dense_init.py:_make_synthetic_dataset``.
+``make_noncentral_calibration_dataset`` is its NoncentralGeneric
+counterpart, for the noncentral initialization from scratch: the
+cross-slit camera and the draws of the reference package's
+``tests/test_noncentral_init.py:_make_dataset``, at any image size and
+board.
 """
 
 from __future__ import annotations
@@ -346,3 +351,78 @@ def make_calibration_dataset(seed=0, n_imagesets=8, k=12, w=320, h=240,
     ds = Dataset(num_cameras=1, image_sizes=[(w, h)], imagesets=imagesets,
                  known_geometries=[geometry])
     return ds, cam, gt_poses
+
+
+def noncentral_calibration_model(w=320, h=240, gres=8, device=None,
+                                 dtype=torch.float64):
+    """A strongly noncentral w×h camera on a (gres, gres) grid: nearly
+    parallel rays (directions (0.8(u − ½), 0.8(v − ½), 1) over the image's
+    normalized coordinates u, v) and line origins (0.15(v − ½),
+    −0.12(u − ½), 0) m, a cross-slit field whose lines meet in no single
+    point."""
+    yy, xx = np.meshgrid(np.arange(gres), np.arange(gres), indexing="ij")
+    u = (xx - 1.0) / (gres - 3.0)  # 0..1 across the image
+    v = (yy - 1.0) / (gres - 3.0)
+    dirs = np.stack([0.8 * (u - 0.5), 0.8 * (v - 0.5), np.ones_like(u)], -1)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    origins = np.stack([0.15 * (v - 0.5), -0.12 * (u - 0.5),
+                        np.zeros_like(u)], -1)
+    dev = default_device(device)
+    return ncg.NoncentralGenericModel(
+        direction_grid=torch.as_tensor(dirs, dtype=dtype, device=dev),
+        point_grid=torch.as_tensor(origins, dtype=dtype, device=dev),
+        width=w, height=h,
+        calibration_min_x=0, calibration_min_y=0,
+        calibration_max_x=w - 1, calibration_max_y=h - 1,
+    )
+
+
+def make_noncentral_calibration_dataset(seed=0, n_imagesets=12, w=320,
+                                        h=240, nx=13, ny=10, cell=0.03):
+    """A single-camera feature dataset of the noncentral camera of
+    :func:`noncentral_calibration_model`: ``n_imagesets`` views of a board
+    of nx×ny corners ``cell`` m apart, each from a random rotation (0.25
+    rad per axis) with the board centered ± N(0, 0.02) m at a depth
+    uniform in [0.42, 0.6] m.  The features are the exact projections
+    (50 LM iterations) of the corners more than 1 px inside the image.
+
+    The defaults are the reference package's test dataset; one seed draws
+    the same poses at any image size and board.  Returns (Dataset, camera,
+    ground-truth image_tr_global poses), computed in float64 on
+    ``config.host_device()``.
+    """
+    dev = host_device()
+    rng = np.random.default_rng(seed)
+    model = noncentral_calibration_model(w, h, device=dev)
+    geometry = KnownGeometry(
+        cell_length_in_meters=cell,
+        feature_id_to_position={
+            y * nx + x: (x, y) for y in range(ny) for x in range(nx)},
+    )
+    pts_pat = np.array(
+        [[x * cell, y * cell, 0.0] for y in range(ny) for x in range(nx)])
+    off = np.array([(nx - 1) / 2 * cell, (ny - 1) / 2 * cell, 0.0])
+
+    imagesets = []
+    poses = []
+    for _ in range(n_imagesets):
+        a = rng.normal(0, 0.25, 3)
+        th = np.linalg.norm(a)
+        k = a / max(th, 1e-12)
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        r = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+        t = -r @ off + np.array(
+            [rng.normal(0, 0.02), rng.normal(0, 0.02),
+             rng.uniform(0.42, 0.6)])
+        x_cam = torch.as_tensor(pts_pat @ r.T + t, device=dev)
+        px, _, valid = ncg.project_points(model, x_cam, max_iterations=50)
+        px, valid = px.numpy(), valid.numpy()
+        valid = valid & (px[:, 0] > 1) & (px[:, 0] < w - 2) \
+            & (px[:, 1] > 1) & (px[:, 1] < h - 2)
+        feats = [PointFeature(xy=px[j], feature_id=j)
+                 for j in range(len(pts_pat)) if valid[j]]
+        imagesets.append(Imageset(features=[feats]))
+        poses.append((r, t))
+    ds = Dataset(num_cameras=1, image_sizes=[(w, h)], imagesets=imagesets,
+                 known_geometries=[geometry])
+    return ds, model, poses

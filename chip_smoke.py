@@ -23,8 +23,12 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    two matvec kernels on a bfloat16 ``j_win`` (the CG matvecs' copies):
    the central and noncentral bench ``j_win``, random 45×79 inputs at K = 2
    and 5, N odd, even but not a multiple of 8, and a view that is not
-   4-byte aligned; bf16 JᵀW·s in narrower bands bit for bit; and the
-   kernels past their staged plans: ``project_blocks`` at the 84×100 grid
+   4-byte aligned; bf16 JᵀW·s in narrower bands bit for bit; the block
+   diagonal's own bf16 variant on the bench ``j_win`` (K = 2), the
+   noncentral one (K = 5) and random K = 5 inputs at 45×79 (in bands),
+   repeatable and in narrower bands bit for bit, and within 1e-6 of the
+   float32 kernel on the widened values; and the kernels past their staged
+   plans: ``project_blocks`` at the 84×100 grid
    of a 2448×2048 camera (262,144 random pixels; it reads its grid and
    frames from device memory there, while ``project`` still stages its
    grid) and ``window_apply_j`` at K = 5 on a 108×108 grid (tangent read
@@ -60,7 +64,8 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    ``window_apply_j`` at K = 5 on 108×108 (the rows' ``past_the_staged_plan``);
    the two bf16 matvec
    kernels at K = 2 and 5 (with a torch.sparse product of the same bf16
-   matrix where torch.sparse takes one); the LM iterations per second of
+   matrix where torch.sparse takes one) and the bf16 block diagonal at
+   K = 2 and 5 (also L2-cold); the LM iterations per second of
    both step forms, of each solver mode, of the noncentral path, of each
    parametric path and of bf16 CG, with the host clock; and the dense
    direct solve's assembly and Cholesky apart;
@@ -82,26 +87,62 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    and the launches per grid; and holds each kernel to its plain version
    and one LM step through the kernels to the plain step at the inputs of
    each grid's first BA stage;
-8. calibrates from camera images through the port's own entry points:
-   ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with its
-   central tag), render-synthetic (30 seeded 1920×1080 views by the camera
-   of [7], 0.6–0.9 m away, noise 0.01, defocus σ 0.8 px) and
-   extract-features (detection on the card), then the steps of [7] on the
-   dataset it wrote.  It requires every view to detect at least 70% of the
-   corners its true pose puts inside the image, the detected corners'
-   median distance to the rendered truth under 0.1 px, the first
-   refinement batch within 1e-3 px (95% of its features; median 1e-4 px,
-   all 1e-2 px) of the same batch refined in float64 on the CPU, the
-   calibration's median reprojection error under 0.1 px, its
-   scale within 0.05 of 1 and every kernel at each pyramid grid; it prints
-   the host seconds of each stage, the features per view and the corner
-   refinement throughput at the reference benchmark's shape (2048
-   features, 512 + 64 samples, a 1280×1024 image, best of 3), with a
-   ``torch.profiler`` reading of one such call (device busy share,
-   launches, the kernels that take the most time);
-9. prints one JSON line listing every kernel (with its launches per
-   pipeline grid of [7] and of [8]), the ``nvidia-smi`` line of the card,
-   and last ``{"ok": true, "device": {...}}``.
+8. detects features in camera images through the port's own entry
+   points: ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with
+   its central tag), render-synthetic (30 seeded 1920×1080 views by a
+   pinhole camera with fx = 0.85·1920, 0.6–0.9 m away, noise 0.01, defocus
+   σ 0.8 px) and extract-features (detection on the card).  It requires
+   every view to detect at least 70% of the corners its true pose puts
+   inside the image, the detected corners' median distance to the
+   rendered truth under 0.1 px, the first refinement batch within 1e-3 px
+   (95% of its features; median 1e-4 px, all 1e-2 px) of the same batch
+   refined in float64 on the CPU; it prints the host seconds of each
+   stage, the features per view and the corner refinement throughput at
+   the reference benchmark's shape (2048 features, 512 + 64 samples, a
+   1280×1024 image, best of 3), with a ``torch.profiler`` reading of one
+   such call.  The calibration of its dataset is [9a]'s, through the
+   command line;
+9a. calibrates [8]'s dataset through the command line with its defaults:
+   ``cli.main calibrate --dataset_files <dataset.bin> --report`` (three
+   levels at 25 px a cell to 45×79, ``auto``, float32 on the card, a
+   float64 polish on the CPU), with the counts set to 0 just before and
+   read per BA stage; then ``report`` of the saved state (float64 on the
+   CPU, and float32 on the card through the projection kernel),
+   ``compare`` with the rendering camera's own model, ``fit-parametric``
+   of the three parametric models and ``create-legends``.  It requires the
+   median reprojection error under 0.1 px, the scale within 0.05 of 1, the
+   final grid 45×79, all five kernels at each pyramid grid (and each, and
+   one LM step, against the plain versions there), the report's median
+   equal to ``calibrate``'s within 1%, every report file, the ``report``
+   command's numbers within 1e-6 relative of the report of the polished
+   state in memory over the same observations (the command counts the
+   outliers ``calibrate`` removed) and the card report launching
+   ``project``, its median within 1e-3 px of the float64 one; it prints
+   the host seconds of each stage and the LM it/s of each BA;
+9b. calibrates a NoncentralGeneric camera from scratch at 1920×1080:
+   ``problems.make_noncentral_calibration_dataset`` (20 views of a 25×19
+   board of 1.5 cm cells by the cross-slit camera of the reference
+   package's noncentral tests) written to ``dataset.bin``, then ``cli.main
+   calibrate --model noncentral_generic --report --num_pyramid_levels 6
+   --polish_iterations 60``: the noncentral initialization on the host,
+   the pyramid BA on the card (11×19 up to 45×79; the K = 5 window
+   kernels; the projection is plain), the float64 polish.  It requires
+   the median reprojection error under 0.01 px, the final grid 45×79, the
+   three window kernels at each of the six pyramid grids (each against
+   its plain version there) and the line offsets image and lines .obj; it
+   prints the host seconds of the initialization, the state, each BA stage
+   and the polish, and the LM it/s of each BA.  Not the command line's
+   defaults: with them (three levels, a 10-iteration polish) this dataset
+   ends at a median of 0.062 px on an H100 machine, above the bar.  There
+   the initialization accepts a bootstrap whose L-BFGS polish stopped at
+   its 600-iteration cap with a direction-field handedness of 0.084 (the
+   reference's test asks only > 0.05), poses about 12° off; another
+   machine's LAPACK rejects the same triple (handedness 0.008) and
+   bootstraps from the next (see NONCENTRAL_LEVELS);
+10. prints one JSON line listing every kernel (with its launches per
+   pipeline grid of [7], of [9a] and, for the K = 5 window rows, of
+   [9b]), the ``nvidia-smi`` line of the card, and last
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA card, when
 the package is missing, or when any phase fails.
@@ -166,10 +207,13 @@ PIPELINE_MEDIAN_PX = 0.02
 PIPELINE_STEP_RMS_PX = 5e-6
 PIPELINE_KERNELS = ("project", "project_blocks", "window_apply_j",
                     "window_apply_jtw", "window_block_diag")
+# The three pyramid grids of a 1920×1080 camera at 25 px per cell.
+PIPELINE_GRIDS = ("25x44", "34x59", "45x79")
 
-# Calibration from images ([8]): 30 rendered views of a 24×24 board by the
-# camera of [7], at depths that keep most of the board in view (fx =
-# 0.85·1920 px), with sensor noise and a defocus blur.  The bars: at least
+# Calibration from images ([8] detects, [9a] calibrates): 30 rendered views
+# of a 24×24 board by a 1920×1080 pinhole camera, at depths that keep most
+# of the board in view (fx = 0.85·1920 px), with sensor noise and a defocus
+# blur.  The bars: at least
 # 70% of the corners inside the image detected in every view; the
 # detector's median distance to the rendered truth under 0.1 px (the
 # reference package's bar for a noisy board, tests/test_detector.py); one
@@ -179,8 +223,8 @@ PIPELINE_KERNELS = ("project", "project_blocks", "window_apply_j",
 # accepting LM steps along the symmetry cost's flat valleys that float32
 # cannot resolve, a few 1e-3 px on the worst features of a CPU float32
 # rehearsal; a float64 solve or float64 sample coordinates do not change
-# that); the calibration's median reprojection error under 0.1 px (the
-# reference package's end-to-end bar, tests/test_stress_e2e.py).
+# that); the calibration's median reprojection error under 0.1 px ([9a];
+# the reference package's end-to-end bar, tests/test_stress_e2e.py).
 IMAGE_TAG = "[8]"
 IMAGE_VIEWS = 30
 IMAGE_SEED = 8
@@ -192,6 +236,38 @@ IMAGE_RING_MEDIAN_PX = 1e-4
 IMAGE_RING_PX = 1e-3
 IMAGE_RING_MAX_PX = 1e-2
 IMAGE_MEDIAN_PX = 0.1
+# The float32 report on the card against the float64 one ([9a]): float32
+# pixel coordinates near 1920 px are 1.2e-4 px apart, and the projections
+# converge to ~1e-4 px, so the medians agree to 1e-3 px.
+CARD_REPORT_PX = 1e-3
+
+# NoncentralGeneric from scratch ([9b]): the cross-slit camera of the
+# reference package's noncentral tests at 1920×1080, 20 views of a board of
+# 25×19 corners 1.5 cm apart (the tests' 36×27 cm board, denser), and the
+# reference's bar on exact data (tests/test_noncentral_init.py).  The
+# initialization's outcome changes with last-bit differences, and on the
+# card's machine it is a poor one (tools/trace_noncentral_init.py follows
+# it step by step): the dataset, the rasterized matches and the random
+# draws are the same bits on both machines, the Ramalingam–Sturm solve of
+# the first triple differs by 1.4e-9 (the two machines' LAPACK), both
+# machines' L-BFGS polishes of it stop at the 600-iteration cap, and the
+# mirror test, which asks only for a handedness above 0.05 (as the
+# reference's does, camera_calibration_tpu/init/noncentral_init.py:266),
+# accepts it at 0.084 on the card's machine and rejects it at 0.008
+# elsewhere.  From those poses (about 12° off) the float32 BA's steps
+# stall: with the command line's three levels and 10-iteration polish the
+# run ends at 0.062 px.  A deeper pyramid (six levels, the coarsest 11×19)
+# and a longer float64 polish (up to 60 iterations; it stops at a 1e-4
+# relative cost reduction) carry that start under the bar.  The fault is
+# the reference's acceptance test, kept here for parity (ROADMAP queue 3).
+NONCENTRAL_VIEWS = 20
+NONCENTRAL_BOARD = (25, 19, 0.015)
+NONCENTRAL_LEVELS = 6
+NONCENTRAL_POLISH = 60
+NONCENTRAL_SEED, NONCENTRAL_INIT_SEED = 1, 2
+NONCENTRAL_MEDIAN_PX = 0.01
+NONCENTRAL_KERNELS = ("window_apply_j", "window_apply_jtw",
+                      "window_block_diag")
 
 
 def log(*args):
@@ -347,10 +423,12 @@ def main() -> int:
             f" bands), {wc.reduction_smem_bytes(45, 79, 5, per_knot)} B shared, "
             f"{wc._resident_blocks(name, 5, 45, 79, dev.index)} blocks per SM")
     for k_, (gh_, gw_) in ((2, (16, 16)), (5, (16, 16)), (5, (45, 79))):
-        layout, rows = wc.reduction_plan(gh_, gw_, k_, k_, 2)
+        prep = wc.prep_rows("window_apply_jtw", k_)
+        layout, rows = wc.reduction_plan(gh_, gw_, k_, k_, 2,
+                                         prep_rows=prep)
         log(f"[2] window_apply_jtw bf16 K={k_} at {gh_}x{gw_}: "
             f"{'ring' if layout == wc.RING else 'compact'} layout, bands of "
-            f"{rows} rows, {wc.reduction_smem_bytes(gh_, gw_, k_, k_, elem_bytes=2)}"
+            f"{rows} rows, {wc.reduction_smem_bytes(gh_, gw_, k_, k_, elem_bytes=2, prep_rows=prep)}"
             f" B shared (float32: "
             f"{wc.reduction_smem_bytes(gh_, gw_, k_, k_)} B), "
             f"{wc._resident_blocks('window_apply_jtw', k_, gh_, gw_, dev.index, 2)}"
@@ -650,10 +728,67 @@ def main() -> int:
         whole = wc.window_apply_jtw(j16, base, ws_b, hh, ww, k)
         same = all(bool(torch.equal(whole, wc.window_apply_jtw(
             j16, base, ws_b, hh, ww, k, band_rows=r))) for r in widths)
+        bands = wc.reduction_bands(
+            hh, ww, k, k, 2, prep_rows=wc.prep_rows("window_apply_jtw", k))[1]
         log(f"    window_apply_jtw bf16 K={k} {hh}x{ww} in bands of "
-            f"{widths} rows: bit-identical to the plan's "
-            f"({wc.reduction_bands(hh, ww, k, k, 2)[1]} band(s)) {same}")
+            f"{widths} rows: bit-identical to the plan's ({bands} band(s)) "
+            f"{same}")
         require(same, f"window_apply_jtw bf16 K={k}: banded result differs")
+
+    def check_block_diag_bf16(j16, base, w, gh, gw, k, label, widths=()):
+        """The block diagonal on a bfloat16 j_win (its own bf16 variant) vs
+        the plain version on the same bf16 values promoted to float64, to
+        WINDOW_REL_TOL, and vs the float32 kernel on the widened values
+        (the same products; the partial sums split over the blocks of the
+        bf16 plan's occupancy) to 1e-6; bit-identical on a second run and
+        in bands of ``widths`` rows; launched as the bf16 variant only."""
+        name = "window_block_diag"
+        before = dict(_cuda.launches)
+        got = wc.window_block_diag(j16, base, w, gh, gw, k)
+        again = wc.window_block_diag(j16, base, w, gh, gw, k)
+        torch.cuda.synchronize()
+        counted = (_cuda.launches[name + "_bf16"]
+                   - before.get(name + "_bf16", 0),
+                   _cuda.launches[name] - before.get(name, 0))
+        ref = wc.window_block_diag_plain(j16.double(), base, w.double(), gh,
+                                         gw, k)
+        e = rel_err(got.double(), ref)
+        widened = wc.window_block_diag(j16.float().contiguous(), base, w, gh,
+                                       gw, k)
+        banded = all(bool(torch.equal(got, wc.window_block_diag(
+            j16, base, w, gh, gw, k, band_rows=r))) for r in widths)
+        bands = wc.reduction_bands(gh, gw, k, k * (k + 1) // 2, 2,
+                                   prep_rows=wc.prep_rows(name, k))[1]
+        e32 = rel_err(got.double(), widened.double())
+        log(f"    {name} bf16 {label}: rel err {e:.3e}, repeatable "
+            f"{bool(torch.equal(got, again))}, vs the float32 kernel on the "
+            f"widened values {e32:.3e} (bit-identical "
+            f"{bool(torch.equal(got, widened))}), {bands} band(s), narrower "
+            f"bands {widths} bit-identical {banded}")
+        require(e <= WINDOW_REL_TOL, f"{name} bf16 {label}: rel err {e}")
+        require(bool(torch.equal(got, again)) and banded,
+                f"{name} bf16 {label}: not bit-identical across runs/bands")
+        require(e32 <= 1e-6,
+                f"{name} bf16 {label}: {e32} from the float32 kernel")
+        require(counted == (2, 0),
+                f"{name} bf16 {label}: launches {counted} (bf16, float32)")
+        return float((got.double() - ref).abs().max())
+
+    bd_bf16_errs = {
+        2: check_block_diag_bf16(b0.intr.j_win.bfloat16(), b0.intr.base_xy,
+                                 b0.weight, gh, gw, 2, "bench 16x16 K=2",
+                                 (1, 5, 8)),
+        5: check_block_diag_bf16(nb0.intr.j_win.bfloat16(), nb0.intr.base_xy,
+                                 nb0.weight, gh, gw, 5,
+                                 "noncentral bench 16x16 K=5", (1, 5, 8))}
+    jw_r, base_r = random_windows[(45, 79, 5)]
+    w_r = torch.as_tensor(rng.uniform(0, 1, jw_r.shape[1]),
+                          dtype=torch.float32, device=dev)
+    require(wc.reduction_bands(45, 79, 5, 15, 2, prep_rows=wc.prep_rows(
+        "window_block_diag", 5))[1] > 1,
+            "the bf16 K=5 block diagonal at 45x79 is not banded")
+    check_block_diag_bf16(jw_r.bfloat16(), base_r, w_r, 45, 79, 5,
+                          "random 45x79 K=5", (9,))
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 4. main paths
@@ -1002,6 +1137,24 @@ def main() -> int:
             if key in libs:
                 row["library"] = libs[key]
             rows[key + suffix] = row
+    # The block diagonal's bf16 variant on the same two j_win rounded to
+    # bf16.  No path of the LM step reads it (the preconditioner is built
+    # from the float32 blocks), so its launches on the paths are 0.
+    for k, (jw_f, base_f, wt_f), suffix in (
+            (2, (jw, base, wt), "_bf16"), (5, (jw5, base5, wt5), "_bf16_k5")):
+        j16 = jw_f.bfloat16()
+        n_k = j16.shape[1]
+        inside_k = float(wc._window_index(base_f, gh, gw)[1].sum())
+        rows["window_block_diag" + suffix] = dict(
+            source=rows["window_block_diag"]["source"],
+            replaces=rows["window_block_diag"]["replaces"],
+            kern=lambda j16=j16, b=base_f, w_=wt_f, k=k: wc.window_block_diag(
+                j16, b, w_, gh, gw, k),
+            plain=lambda j16=j16, b=base_f, w_=wt_f, k=k:
+            wc.window_block_diag_plain(j16, b, w_, gh, gw, k),
+            nbytes=j16.numel() * 2 + n_k * 2 * 4 + n_k * 4 + gh * gw * k * k * 4,
+            flops=6 * (k * (k + 1) // 2) * inside_k,
+            launch_key="window_block_diag_bf16", max_abs=bd_bf16_errs[k])
     kernels = []
     for name, r in rows.items():
         ms = time_ms(torch, r["kern"], reps=100, warmup=5)
@@ -1009,9 +1162,11 @@ def main() -> int:
         plain_ms = time_ms(torch, r["plain"], reps=3, warmup=1)
         library_ms = (time_ms(torch, r["library"], reps=100, warmup=5)
                       if "library" in r else None)
-        # the matvecs read j_win once a CG iteration: time them cold too
+        # the matvecs read j_win once a CG iteration, and a bf16 j_win fits
+        # in L2: time them cold too
         cold_ms = (cold_graph_ms(torch, r["kern"])
-                   if name.startswith("window_apply") else None)
+                   if name.startswith("window_apply") or "_bf16" in name
+                   else None)
         b_ms, b_by = bound_ms(r["nbytes"], r["flops"])
         n_launch = r.get("counts", launches).get(r.get("launch_key", name), 0)
         lib_txt = "" if library_ms is None else f", torch.sparse {library_ms:.4f} ms"
@@ -1278,17 +1433,28 @@ def main() -> int:
                 for grid, counts in pipeline["launches"].items()}
     log(f"[7] whole run {time.perf_counter() - t_start:.1f} s")
 
-    # ------------------------------------ 8. calibration from camera images
-    images = image_pipeline(
-        torch, smi, IMAGE_VIEWS,
-        checks=dict(project=check_project, blocks=check_blocks,
-                    window=check_window))
+    # ----------------------------------- 8. feature detection in images
+    images = image_pipeline(torch, smi, IMAGE_VIEWS)
+    log(f"[8] whole run {time.perf_counter() - t_start:.1f} s")
+
+    # ------------- 9a. the command line's calibration of [8]'s dataset
+    checks = dict(project=check_project, blocks=check_blocks,
+                  window=check_window)
+    cli_run = cli_pipeline(torch, smi, images, checks)
+    log(f"[9a] whole run {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------ 9b. NoncentralGeneric from scratch at 1080p
+    nc_run = noncentral_pipeline(torch, smi, checks)
+    log(f"[9b] whole run {time.perf_counter() - t_start:.1f} s")
     for row in kernels:
         if row["name"] in PIPELINE_KERNELS:
-            row["image_pipeline_launches"] = {
+            row["cli_launches"] = {
                 grid: counts.get(row["name"], 0)
-                for grid, counts in images["launches"].items()}
-    log(f"[8] whole run {time.perf_counter() - t_start:.1f} s")
+                for grid, counts in cli_run["launches"].items()}
+        if row["name"] in (k + "_k5" for k in NONCENTRAL_KERNELS):
+            row["noncentral_launches"] = {
+                grid: counts.get(row["name"][:-len("_k5")], 0)
+                for grid, counts in nc_run["launches"].items()}
 
     for row in kernels:
         extra = rows_k5.get(row["name"][:-len("_k5")], {}).get("at_45x79")
@@ -1345,16 +1511,13 @@ def calibrate_dataset(torch, smi, ds, checks, dev, out_dir, tag, median_px,
     under ``out_dir``; the checks of :func:`calibration_pipeline`, with the
     median reprojection error held under ``median_px``.  Log lines start
     with ``tag``; host times are added to ``times``."""
-    from camera_calibration_torch import _cuda, native, problems
+    from camera_calibration_torch import native
     from camera_calibration_torch import calibrate as cal
-    from camera_calibration_torch.ba import lm_pcg
-    from camera_calibration_torch.ba import window_cuda as wc
     from camera_calibration_torch.init.dense_init import (
         DenseInitializer, DenseInitOptions,
     )
     from camera_calibration_torch.init.state_init import build_ba_state
     from camera_calibration_torch.io import state_io
-    from camera_calibration_torch.models import central_generic_cuda as cgc
 
     def sync():
         if dev.type == "cuda":
@@ -1394,114 +1557,16 @@ def calibrate_dataset(torch, smi, ds, checks, dev, out_dir, tag, median_px,
             and state.intrinsics[0].grid.device.type == dev.type,
             "the initial state is not float32 on the card")
 
-    stages, firsts = [], {}
-
-    def recorded(st, dat, max_iterations, threshold, options, **kw):
-        grid = "x".join(str(v) for v in st.intrinsics[0].grid.shape[:2])
-        if st.points.device.type == dev.type:
-            firsts.setdefault(grid, (st, dat))
-        before = dict(_cuda.launches)
-        sync()
-        t1 = time.perf_counter()
-        out = run_ba(st, dat, max_iterations, threshold, options, **kw)
-        sync()
-        rep = out[1]["report"]
-        stages.append(dict(
-            grid=grid, device=str(st.points.device),
-            dtype=str(st.points.dtype).replace("torch.", ""),
-            max_iterations=max_iterations, threshold=threshold,
-            iterations=rep.iterations, accepted=rep.accepted,
-            seconds=time.perf_counter() - t1, start=t1 - t_cal,
-            initial_cost=rep.initial_cost, final_cost=rep.final_cost,
-            launches={k: _cuda.launches[k] - before.get(k, 0)
-                      for k in _cuda.launches
-                      if _cuda.launches[k] != before.get(k, 0)}))
-        return out
-
-    outlier_pass = {}
-
-    def outliers(st, dat, factor):
-        before = dict(_cuda.launches)
-        sync()
-        t1 = time.perf_counter()
-        out = delete_outliers(st, dat, factor)
-        sync()
-        outlier_pass.update(
-            grid="x".join(str(v) for v in st.intrinsics[0].grid.shape[:2]),
-            seconds=time.perf_counter() - t1, removed=out[1],
-            launches={k: _cuda.launches[k] - before.get(k, 0)
-                      for k in _cuda.launches
-                      if _cuda.launches[k] != before.get(k, 0)})
-        return out
-
-    run_ba, delete_outliers = cal.run_ba, cal.delete_outlier_features
+    rec = CalibrationRecord(torch, dev)
     options = cal.CalibrateOptions(polish_iterations=10)
-    _cuda.reset_launches()
-    t_cal = time.perf_counter()
-    with mock.patch.object(cal, "run_ba", recorded), \
-            mock.patch.object(cal, "delete_outlier_features", outliers):
+    with rec.recording(cal):
         st_f, data_f, report = cal.calibrate(
             state, data, options, known_geometries=ds.known_geometries,
             feature_id_to_point_index=fid, image_used=used,
             log=lambda *a: log("    " + " ".join(str(x) for x in a)))
-    sync()
-    times["calibrate"] = time.perf_counter() - t_cal
-    totals = dict(_cuda.launches)
-
-    per_grid = {}
-    for st_ in stages:
-        if st_["device"].startswith(dev.type):
-            acc = per_grid.setdefault(st_["grid"], {})
-            for k, v in st_["launches"].items():
-                acc[k] = acc.get(k, 0) + v
-    for k, v in outlier_pass.get("launches", {}).items():
-        acc = per_grid.setdefault(outlier_pass["grid"], {})
-        acc[k] = acc.get(k, 0) + v
-    names = ["pyramid BA (10 it @ 1e-4)", "pyramid BA (50 it @ 1)"] * 2 + [
-        "outlier-pass BA", "final BA", "float64 polish"]
-    for i, st_ in enumerate(stages):
-        label = names[i] if i < len(names) else f"stage {i}"
-        log(f"{tag} {label} at {st_['grid']} ({st_['dtype']} on "
-            f"{st_['device']}): {st_['iterations']} LM iterations "
-            f"({st_['accepted']} accepted) in {st_['seconds']:.3f} s = "
-            f"{st_['iterations'] / max(st_['seconds'], 1e-9):.2f} LM it/s, "
-            f"cost {st_['initial_cost']:.6g} -> {st_['final_cost']:.6g}; "
-            f"launches {json.dumps(st_['launches'], sort_keys=True)} on {smi}")
-    starts = [st_["start"] for st_ in stages] + [times["calibrate"]]
-    for lv, i in ((2, 0), (1, 2)):
-        log(f"{tag} pyramid level {lv} ({stages[i]['grid']}): "
-            f"{starts[i + 2] - starts[i]:.3f} s (host, both BAs and the "
-            f"resample)")
-    log(f"{tag} outlier pass at {outlier_pass['grid']}: removed "
-        f"{outlier_pass['removed']} in {outlier_pass['seconds']:.3f} s; "
-        f"launches {json.dumps(outlier_pass['launches'], sort_keys=True)}")
-    log(f"{tag} launches per grid: {json.dumps(per_grid, sort_keys=True)}; "
-        f"total {json.dumps(totals, sort_keys=True)}")
-    shown = {k: v for k, v in report.items() if k not in ("solver",
-                                                         "pyramid")}
-    log(f"{tag} report: {json.dumps(shown, sort_keys=True)}")
-    log(f"{tag} host times (s): {json.dumps(times, sort_keys=True)} on {smi}")
-
-    final_grid = tuple(st_f.intrinsics[0].grid.shape[:2])
-    require(final_grid == (45, 79), f"final grid {final_grid}")
-    require(report["reprojection_error_median"] < median_px,
-            f"median reprojection error {report['reprojection_error_median']}")
-    require(abs(report["scale_factor"] - 1.0) < 0.05,
-            f"scale factor {report['scale_factor']}")
-    require(st_f.points.dtype == torch.float64
-            and st_f.points.device.type == "cpu"
-            and bool(torch.isfinite(st_f.points).all()),
-            "the polished state is not a finite float64 CPU state")
-    require(len(stages) == 7 and stages[-1]["device"] == "cpu"
-            and stages[-1]["launches"] == {},
-            "the polish did not run alone on the CPU")
-    grids = ("25x44", "34x59", "45x79")
-    require(sorted(per_grid) == sorted(grids),
-            f"pipeline grids {sorted(per_grid)}")
-    for grid in grids:
-        for name in PIPELINE_KERNELS:
-            require(per_grid[grid].get(name, 0) > 0,
-                    f"pipeline: kernel {name} never launched at {grid}")
+    times["calibrate"] = rec.seconds
+    per_grid = rec.summarize(tag, report, times, smi)
+    rec.gate(st_f, report, median_px, PIPELINE_KERNELS)
 
     t0 = time.perf_counter()
     state_io.save_ba_state(out_dir / "state", st_f, used, fid)
@@ -1509,27 +1574,205 @@ def calibrate_dataset(torch, smi, ds, checks, dev, out_dir, tag, median_px,
             "state_io wrote no intrinsics")
     log(f"{tag} state saved to {out_dir / 'state'} in "
         f"{time.perf_counter() - t0:.2f} s")
+    check_pyramid_grids(torch, rec, checks, dev, tag)
+    return {"launches": per_grid, "report": report, "times": times,
+            "stages": rec.stages}
 
-    # Each kernel against its plain version, and one LM step through the
-    # kernels against the plain step, at the inputs of each pyramid grid's
-    # first BA stage (the observed rows of the grid-layout table).
+
+def grid_name(model):
+    """"gh x gw" of a grid model (its direction grid if noncentral)."""
+    grid = model.grid if hasattr(model, "grid") else model.direction_grid
+    return "x".join(str(v) for v in grid.shape[:2])
+
+
+class CalibrationRecord:
+    """What one ``calibrate`` run did, stage by stage: while
+    :meth:`recording` is active, ``calibrate.run_ba`` and
+    ``calibrate.delete_outlier_features`` are wrapped to record each BA
+    stage's grid, device, LM iterations, host seconds, costs and kernel
+    launches, and the inputs of each grid's first stage on the card.  The
+    launch counts are set to 0 when the recording starts."""
+
+    PYRAMID_NAMES = ["pyramid BA (10 it @ 1e-4)", "pyramid BA (50 it @ 1)"]
+    FINAL_NAMES = ["outlier-pass BA", "final BA", "float64 polish"]
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.stages, self.firsts, self.outlier_pass = [], {}, {}
+        self.seconds = None
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def _delta(self, before):
+        from camera_calibration_torch import _cuda
+
+        return {k: _cuda.launches[k] - before.get(k, 0)
+                for k in _cuda.launches
+                if _cuda.launches[k] != before.get(k, 0)}
+
+    @contextmanager
+    def recording(self, cal):
+        from camera_calibration_torch import _cuda
+
+        run_ba, delete_outliers = cal.run_ba, cal.delete_outlier_features
+
+        def recorded(st, dat, max_iterations, threshold, options, **kw):
+            grid = grid_name(st.intrinsics[0])
+            if st.points.device.type == self.dev.type:
+                self.firsts.setdefault(grid, (st, dat))
+            before = dict(_cuda.launches)
+            self.sync()
+            t1 = time.perf_counter()
+            out = run_ba(st, dat, max_iterations, threshold, options, **kw)
+            self.sync()
+            rep = out[1]["report"]
+            self.stages.append(dict(
+                grid=grid, device=str(st.points.device),
+                dtype=str(st.points.dtype).replace("torch.", ""),
+                max_iterations=max_iterations, threshold=threshold,
+                iterations=rep.iterations, accepted=rep.accepted,
+                seconds=time.perf_counter() - t1, start=t1 - t_cal,
+                initial_cost=rep.initial_cost, final_cost=rep.final_cost,
+                launches=self._delta(before)))
+            return out
+
+        def outliers(st, dat, factor):
+            before = dict(_cuda.launches)
+            self.sync()
+            t1 = time.perf_counter()
+            out = delete_outliers(st, dat, factor)
+            self.sync()
+            self.outlier_pass.update(
+                grid=grid_name(st.intrinsics[0]),
+                seconds=time.perf_counter() - t1, removed=out[1],
+                launches=self._delta(before))
+            return out
+
+        _cuda.reset_launches()
+        t_cal = time.perf_counter()
+        with mock.patch.object(cal, "run_ba", recorded), \
+                mock.patch.object(cal, "delete_outlier_features", outliers):
+            yield self
+        self.sync()
+        self.seconds = time.perf_counter() - t_cal
+        self.totals = dict(_cuda.launches)
+
+    def per_grid(self):
+        """Kernel launches per pyramid grid (the BA stages on the card and
+        the outlier pass)."""
+        per_grid = {}
+        for st_ in self.stages:
+            if st_["device"].startswith(self.dev.type):
+                acc = per_grid.setdefault(st_["grid"], {})
+                for k, v in st_["launches"].items():
+                    acc[k] = acc.get(k, 0) + v
+        for k, v in self.outlier_pass.get("launches", {}).items():
+            acc = per_grid.setdefault(self.outlier_pass["grid"], {})
+            acc[k] = acc.get(k, 0) + v
+        return per_grid
+
+    def summarize(self, tag, report, times, smi):
+        """Log each stage, the pyramid levels, the outlier pass, the
+        launches per grid and the report; returns the launches per grid."""
+        stages = self.stages
+        n_pyr = len(stages) - len(self.FINAL_NAMES)
+        names = self.PYRAMID_NAMES * (n_pyr // 2) + self.FINAL_NAMES
+        for i, st_ in enumerate(stages):
+            label = names[i] if i < len(names) else f"stage {i}"
+            log(f"{tag} {label} at {st_['grid']} ({st_['dtype']} on "
+                f"{st_['device']}): {st_['iterations']} LM iterations "
+                f"({st_['accepted']} accepted) in {st_['seconds']:.3f} s = "
+                f"{st_['iterations'] / max(st_['seconds'], 1e-9):.2f} LM "
+                f"it/s, cost {st_['initial_cost']:.6g} -> "
+                f"{st_['final_cost']:.6g}; launches "
+                f"{json.dumps(st_['launches'], sort_keys=True)} on {smi}")
+        starts = [st_["start"] for st_ in stages] + [self.seconds]
+        for i in range(0, n_pyr, 2):
+            log(f"{tag} pyramid level {(n_pyr - i) // 2} "
+                f"({stages[i]['grid']}): {starts[i + 2] - starts[i]:.3f} s "
+                "(host, both BAs and the resample)")
+        op = self.outlier_pass
+        log(f"{tag} outlier pass at {op['grid']}: removed {op['removed']} "
+            f"in {op['seconds']:.3f} s; launches "
+            f"{json.dumps(op['launches'], sort_keys=True)}")
+        per_grid = self.per_grid()
+        log(f"{tag} launches per grid: {json.dumps(per_grid, sort_keys=True)}"
+            f"; total {json.dumps(self.totals, sort_keys=True)}")
+        shown = {k: v for k, v in report.items()
+                 if k not in ("solver", "pyramid")}
+        log(f"{tag} report: {json.dumps(shown, sort_keys=True)}")
+        log(f"{tag} host times (s): {json.dumps(times, sort_keys=True)} on "
+            f"{smi}")
+        return per_grid
+
+    def gate(self, st_f, report, median_px, kernels, scale_tol=0.05,
+             grids=PIPELINE_GRIDS):
+        """The quality bar: the final grid (the last of ``grids``, 45×79),
+        the median reprojection error, the metric scale within
+        ``scale_tol`` of 1 (unless None), a finite float64 CPU state from a
+        polish that ran alone on the CPU, and every kernel of ``kernels``
+        launched at each pyramid grid of ``grids``, coarse to fine."""
+        torch = self.torch
+        got = grid_name(st_f.intrinsics[0])
+        require(got == grids[-1], f"final grid {got}")
+        require(report["reprojection_error_median"] < median_px,
+                "median reprojection error "
+                f"{report['reprojection_error_median']}")
+        require(scale_tol is None
+                or abs(report["scale_factor"] - 1.0) < scale_tol,
+                f"scale factor {report['scale_factor']}")
+        require(st_f.points.dtype == torch.float64
+                and st_f.points.device.type == "cpu"
+                and bool(torch.isfinite(st_f.points).all()),
+                "the polished state is not a finite float64 CPU state")
+        require(len(self.stages) == 2 * len(grids) + 1
+                and self.stages[-1]["device"] == "cpu"
+                and self.stages[-1]["launches"] == {},
+                "the polish did not run alone on the CPU")
+        per_grid = self.per_grid()
+        require(sorted(per_grid) == sorted(grids),
+                f"pipeline grids {sorted(per_grid)}")
+        for grid, counts in per_grid.items():
+            for name in kernels:
+                require(counts.get(name, 0) > 0,
+                        f"pipeline: kernel {name} never launched at {grid}")
+
+
+def check_pyramid_grids(torch, rec, checks, dev, tag):
+    """Each kernel against its plain version at the inputs of each pyramid
+    grid's first BA stage (the observed rows of the grid-layout table);
+    for a CentralGeneric camera also one LM step through the kernels
+    against the plain step, for a NoncentralGeneric one the K = 5 window
+    kernels only (its projection is plain)."""
+    from camera_calibration_torch import problems
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.ba import window_cuda as wc
+    from camera_calibration_torch.models import central_generic_cuda as cgc
+
+    t0 = time.perf_counter()
     bopts = lm_pcg.BAOptions(solver="schur", proj_iterations=4)
-    for grid, (st0, dat0) in firsts.items():
+    for grid, (st0, dat0) in rec.firsts.items():
         model = st0.intrinsics[0]
-        gh, gw = model.grid.shape[:2]
+        central = hasattr(model, "grid")
+        gh, gw = (model.grid if central else model.direction_grid).shape[:2]
         data_g = lm_pcg.maybe_grid_layout(dat0, st0, bopts)
         seg = data_g[0]
+        blocks, _ = lm_pcg.compute_blocks(data_g, st0, (seg.pixel,), bopts)
+        b = blocks[0]
+        checks["window"](b.intr.j_win, b.intr.base_xy, gh, gw,
+                         2 if central else 5,
+                         f"pipeline {grid}, {b.intr.j_win.shape[1]} rows",
+                         w=b.weight)
+        if not central:
+            continue
         d, g0 = problems.bench_projection_inputs(st0, seg)
         obs = seg.valid
         checks["project"](model, d[obs].contiguous(), g0[obs].contiguous(),
                           4, f"pipeline {grid}")
         checks["blocks"](model, d[obs].contiguous(), g0[obs].contiguous(),
                          4, f"pipeline {grid}")
-        blocks, _ = lm_pcg.compute_blocks(data_g, st0, (seg.pixel,), bopts)
-        b = blocks[0]
-        checks["window"](b.intr.j_win, b.intr.base_xy, gh, gw, 2,
-                         f"pipeline {grid}, {b.intr.j_win.shape[1]} rows",
-                         w=b.weight)
         warm = tuple(s_.pixel for s_ in data_g)
         lam = torch.tensor(-1.0, dtype=torch.float32, device=dev)
         out_k = lm_pcg.lm_step(st0, warm, lam, data_g, bopts)
@@ -1555,25 +1798,25 @@ def calibrate_dataset(torch, smi, ds, checks, dev, out_dir, tag, median_px,
                 f"pipeline {grid}: the LM step through the kernels "
                 "disagrees with the plain step")
     log(f"{tag} pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
-    return {"launches": per_grid, "report": report, "times": times,
-            "stages": stages}
 
 
-def image_pipeline(torch, smi, n_views, checks, device=None):
-    """Calibration from camera images through the port's own entry points:
-    ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with its
-    central tag), render-synthetic (``n_views`` seeded views by the
-    1920×1080 pinhole camera of [7]) and extract-features (detection on
-    ``device``, the card by default), then :func:`calibrate_dataset` of
-    the dataset it wrote.  Gates: every view detects at least
-    IMAGE_MIN_DETECTED of the board corners its true pose puts inside the
-    image (2·window_half_size from the border); the median distance of
-    detected corners to the rendered truth is under IMAGE_MEDIAN_TRUTH_PX;
-    the first refinement batch of the detection, refined again on the CPU
-    in float64, converges to within IMAGE_RING_PX of the card's float32
-    result on 95% of its features (IMAGE_RING_MEDIAN_PX on the median,
-    IMAGE_RING_MAX_PX on all); and the calibration meets IMAGE_MEDIAN_PX.  Also prints the
-    refinement throughput at the reference benchmark's shape."""
+def image_pipeline(torch, smi, n_views, device=None):
+    """Feature detection in camera images through the port's own entry
+    points: ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with
+    its central tag), render-synthetic (``n_views`` seeded views by a
+    1920×1080 pinhole camera with fx = 0.85·1920) and extract-features
+    (detection on ``device``, the card by default).  Gates: every view
+    detects at least IMAGE_MIN_DETECTED of the board corners its true pose
+    puts inside the image (2·window_half_size from the border); the median
+    distance of detected corners to the rendered truth is under
+    IMAGE_MEDIAN_TRUTH_PX; the first refinement batch of the detection,
+    refined again on the CPU in float64, converges to within IMAGE_RING_PX
+    of the card's float32 result on 95% of its features
+    (IMAGE_RING_MEDIAN_PX on the median, IMAGE_RING_MAX_PX on all).  Also
+    prints the refinement throughput at the reference benchmark's shape.
+    The calibration of the dataset it writes is [9a]'s
+    (:func:`cli_pipeline`), through the command line.  Returns the
+    dataset's path, the output directory and the host times."""
     import shutil
 
     from camera_calibration_torch import _cuda, cli
@@ -1738,17 +1981,269 @@ def image_pipeline(torch, smi, n_views, checks, device=None):
         log_profile(IMAGE_TAG, "one refinement call at that shape", *prof,
                     smi)
 
-    log(f"{IMAGE_TAG} host times so far (s): "
-        f"{json.dumps(times, sort_keys=True)} on {smi}")
-    result = calibrate_dataset(torch, smi, ds, checks, dev, out_dir,
-                               IMAGE_TAG, IMAGE_MEDIAN_PX, times)
-    polish = result["stages"][-1]["seconds"]
-    log(f"{IMAGE_TAG} host seconds per stage: render {times['render']:.2f}, "
-        f"detect {times['detect']:.2f}, init {times['init']:.2f}, state "
+    log(f"{IMAGE_TAG} host seconds per stage: pattern "
+        f"{times['pattern']:.2f}, render {times['render']:.2f}, detect "
+        f"{times['detect']:.2f} on {smi}; the calibration of this dataset "
+        "is [9a]'s")
+    return {"dataset": path, "out_dir": out_dir, "times": times,
+            "refinements_per_s": n_f / best}
+
+
+@contextmanager
+def timed_cli_stages(times, captured):
+    """Time the command line's stages into ``times`` (host seconds of the
+    initialization, the initial state, ``calibrate`` and the report) and
+    keep ``calibrate``'s result and the report's metrics in
+    ``captured``."""
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch import cli
+    from camera_calibration_torch.init import state_init
+    from camera_calibration_torch.report import calibration_report as crep
+
+    def timed(key, fn, keep=None):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            if keep is not None:
+                captured[keep] = out
+            return out
+        return run
+
+    with mock.patch.object(cli, "_dense_initialization",
+                           timed("init", cli._dense_initialization)), \
+            mock.patch.object(state_init, "build_ba_state",
+                              timed("state", state_init.build_ba_state,
+                                    "initial")), \
+            mock.patch.object(cal, "calibrate",
+                              timed("calibrate", cal.calibrate, "result")), \
+            mock.patch.object(crep, "create_calibration_report",
+                              timed("report", crep.create_calibration_report,
+                                    "metrics")):
+        yield
+
+
+REPORT_FILES = ("_info.txt", "_errors_histogram.png", "_error_magnitudes.png",
+                "_error_directions.png", "_grid_point_locations.png",
+                "_observation_directions.png")
+
+
+def report_numbers(path):
+    """The numbers of a report's ``_info.txt``, in order."""
+    import re
+
+    return [float(v) for v in re.findall(
+        r"-?\d+\.?\d*(?:[eE][-+]?\d+)?", path.read_text())]
+
+
+def cli_pipeline(torch, smi, images, checks, device=None):
+    """[9a]: the command line's calibration of [8]'s dataset.bin on the
+    card with its defaults (three levels at 25 px a cell to 45×79,
+    ``auto``, float32 on the card and a float64 polish on the CPU) and
+    ``--report``; then ``report`` of the saved state (float64 on the CPU,
+    and float32 on the card through the projection kernel), ``compare`` of
+    the state with the rendering camera's own model, ``fit-parametric``
+    of the three parametric models and ``create-legends``.  Gates: [8]'s
+    calibration bar (median < IMAGE_MEDIAN_PX, scale within 0.05, final
+    grid 45×79, the five kernels at each pyramid grid, each kernel and one
+    LM step against the plain versions at each grid); the report's median
+    equal to ``calibrate``'s within 1%; every report file written; the
+    ``report`` command's numbers within 1e-6 relative of the report of the
+    polished state in memory over the same observations (the command
+    rebuilds its tables from dataset.bin, so it counts the outliers that
+    ``calibrate`` removed, as the reference's command does); the card
+    report launching ``project``, its median within CARD_REPORT_PX of
+    that one.
+    ``device``: the card by default."""
+    from camera_calibration_torch import _cuda, cli, problems
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch.ba.state import BAState
+    from camera_calibration_torch.io import state_io
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    on = [] if device is None else ["--device", str(dev)]
+    out = images["out_dir"] / "cli"
+    path = images["dataset"]
+    times, captured = dict(images["times"]), {}
+    rec = CalibrationRecord(torch, dev)
+    with timed_cli_stages(times, captured), rec.recording(cal):
+        rc = cli.main(["calibrate", "--dataset_files", str(path),
+                       "--output_directory", str(out), "--report", *on])
+    require(rc == 0, f"calibrate exited with {rc}")
+    st_f, _, report = captured["result"]
+    per_grid = rec.summarize("[9a]", report, times, smi)
+    rec.gate(st_f, report, IMAGE_MEDIAN_PX, PIPELINE_KERNELS)
+    metrics = captured["metrics"][0]
+    rel = (abs(metrics["reprojection_error_median"]
+               - report["reprojection_error_median"])
+           / report["reprojection_error_median"])
+    log(f"[9a] report: median {metrics['reprojection_error_median']:.6g} px "
+        f"(calibrate's {report['reprojection_error_median']:.6g}, rel "
+        f"{rel:.3e}), {metrics['reprojection_error_count']} errors, "
+        f"{times['report']:.2f} s")
+    require(rel <= 0.01, "the report's median differs from calibrate's")
+    for suffix in REPORT_FILES:
+        require((out / "report" / f"report_camera0{suffix}").exists(),
+                f"calibrate --report wrote no {suffix}")
+    check_pyramid_grids(torch, rec, checks, dev, "[9a]")
+
+    # the report command on the saved state: float64 on the CPU gives the
+    # numbers of the polished state in memory over every observation of
+    # dataset.bin (outliers included, as the command rebuilds its tables);
+    # float32 on the card goes through the projection kernel
+    from camera_calibration_torch.ba.dataset import build_per_camera_tables
+    from camera_calibration_torch.io import dataset_bin
+    from camera_calibration_torch.report.calibration_report import (
+        create_calibration_report)
+
+    _, _, fid, used = captured["initial"]
+    ds = dataset_bin.load_datasets(str(path))
+    create_calibration_report(
+        out / "report_all", st_f, build_per_camera_tables(
+            ds, fid, image_used=used, dtype=torch.float64, device="cpu"),
+        num_total_imagesets=len(ds.imagesets))
+    mine = report_numbers(out / "report_all" / "report_camera0_info.txt")
+    t0 = time.perf_counter()
+    args = ["report", "--state_directory", str(out / "state"),
+            "--dataset_files", str(path)]
+    require(cli.main(args + ["--output_directory", str(out / "report_cpu"),
+                             "--device", "cpu"]) == 0,
+            "report (CPU) failed")
+    t_cpu = time.perf_counter() - t0
+    again = report_numbers(out / "report_cpu" / "report_camera0_info.txt")
+    worst = max(abs(a - b) / max(abs(a), 1e-12) for a, b in zip(mine, again))
+    log(f"[9a] report command, float64 on the CPU: {len(again)} numbers, "
+        f"median {again[5]:.6g} px over {int(again[4])} observations "
+        f"(calibrate --report: {metrics['reprojection_error_median']:.6g} "
+        f"px over the {metrics['reprojection_error_count']} left after the "
+        f"outlier pass); largest relative difference from the in-memory "
+        f"state's report over the same observations {worst:.3e} "
+        f"({t_cpu:.2f} s)")
+    require(len(mine) == len(again) and worst <= 1e-6,
+            "the report command's numbers differ from the saved state's")
+    before = dict(_cuda.launches)
+    t0 = time.perf_counter()
+    require(cli.main(args + ["--output_directory", str(out / "report_card"),
+                             *on]) == 0, "report (card) failed")
+    rec.sync()
+    t_card = time.perf_counter() - t0
+    n_project = _cuda.launches["project"] - before.get("project", 0)
+    card = report_numbers(out / "report_card" / "report_camera0_info.txt")
+    card_gap = abs(card[5] - again[5])
+    log(f"[9a] report command, float32 on the card: median {card[5]:.6g} px "
+        f"(float64: {again[5]:.6g}, |Δ| {card_gap:.3e} px), {n_project} "
+        f"project launches ({t_card:.2f} s) on {smi}")
+    require(n_project > 0, "the card report launched no projection kernel")
+    require(card_gap <= CARD_REPORT_PX,
+            f"the card report's median is {card_gap} px from float64's")
+
+    # compare with the rendering camera (fx = 0.85·1920, centred)
+    truth = problems.pinhole_model(1920, 1080, 79, 45, device="cpu",
+                                   dtype=torch.float64)
+    one = torch.tensor([[1.0, 0, 0, 0]], dtype=torch.float64)
+    zero = torch.zeros((1, 3), dtype=torch.float64)
+    state_io.save_ba_state(out / "truth", BAState(
+        rig_q_global=one, rig_t_global=zero, cam_q_rig=one, cam_t_rig=zero,
+        points=zero, intrinsics=(truth,)), [True], {0: 0})
+    require(cli.main(["compare", str(out / "state"), str(out / "truth"),
+                      *on]) == 0, "compare failed")
+
+    t0 = time.perf_counter()
+    # without --co_estimate_rotation (the rotation co-estimate takes the
+    # port's eager jvp fits ~9x longer): the calibration's frame is rotated
+    # against the rendering camera's (``compare`` above reads it), so the
+    # residual fields show the rotation too
+    require(cli.main(["fit-parametric", "--state_directory",
+                      str(out / "state"), "--output_directory",
+                      str(out / "fit"), *on]) == 0, "fit-parametric failed")
+    rec.sync()
+    times["fit_parametric"] = time.perf_counter() - t0
+    for name in ("central_thin_prism_fisheye", "central_opencv",
+                 "central_radial"):
+        require((out / "fit" / f"fitting_{name}_residual_field.png").exists(),
+                f"fit-parametric wrote no {name} residual field")
+    require(cli.main(["create-legends", "--output_directory",
+                      str(out / "legends")]) == 0, "create-legends failed")
+    require(len(list((out / "legends").glob("legend_*.png"))) == 3,
+            "create-legends wrote no three legends")
+    log(f"[9a] host seconds per stage: {json.dumps(times, sort_keys=True)} "
+        f"on {smi}")
+    return {"launches": per_grid, "report": report, "times": times}
+
+
+def noncentral_pipeline(torch, smi, checks, device=None):
+    """[9b]: a NoncentralGeneric camera calibrated from scratch at
+    1920×1080 through the command line: ``problems.
+    make_noncentral_calibration_dataset`` (the cross-slit camera of the
+    reference package's noncentral tests; NONCENTRAL_VIEWS views of a
+    NONCENTRAL_BOARD board) written to dataset.bin, then ``calibrate
+    --model noncentral_generic --report --num_pyramid_levels
+    NONCENTRAL_LEVELS --polish_iterations NONCENTRAL_POLISH``: the
+    noncentral initialization on the host, the
+    initial state and the pyramid BA on the card (the three K = 5 window
+    kernels; the projection is plain), the float64 polish on the CPU.
+    Gates: median < NONCENTRAL_MEDIAN_PX, the final grid 45×79, the three
+    window kernels at each pyramid grid (and each against its plain
+    version there), no projection kernel, the line offsets image and the
+    lines .obj written; the metric scale is printed.  ``device``: the card
+    by default."""
+    from camera_calibration_torch import _cuda, cli, problems
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch.io import dataset_bin
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    on = [] if device is None else ["--device", str(dev)]
+    out = _cuda.BUILD_ROOT / "noncentral"
+    out.mkdir(parents=True, exist_ok=True)
+    times, captured = {}, {}
+    t0 = time.perf_counter()
+    nx, ny, cell = NONCENTRAL_BOARD
+    ds, _, _ = problems.make_noncentral_calibration_dataset(
+        seed=NONCENTRAL_SEED, n_imagesets=NONCENTRAL_VIEWS, w=1920, h=1080,
+        nx=nx, ny=ny, cell=cell)
+    path = out / "dataset.bin"
+    dataset_bin.save_dataset(path, ds)
+    times["dataset"] = time.perf_counter() - t0
+    n_features = sum(len(s_.features[0]) for s_ in ds.imagesets)
+    log(f"[9b] dataset: {len(ds.imagesets)} views of a {nx}x{ny} board "
+        f"({cell} m) by the 1920x1080 noncentral camera, {n_features} "
+        f"features, {times['dataset']:.2f} s")
+    rec = CalibrationRecord(torch, dev)
+    with timed_cli_stages(times, captured), rec.recording(cal):
+        rc = cli.main(["calibrate", "--dataset_files", str(path),
+                       "--output_directory", str(out / "out"), "--model",
+                       "noncentral_generic", "--report", "--seed",
+                       str(NONCENTRAL_INIT_SEED), "--num_pyramid_levels",
+                       str(NONCENTRAL_LEVELS), "--polish_iterations",
+                       str(NONCENTRAL_POLISH), *on])
+    require(rc == 0, f"calibrate exited with {rc}")
+    st_f, _, report = captured["result"]
+    per_grid = rec.summarize("[9b]", report, times, smi)
+    require(type(st_f.intrinsics[0]).__name__ == "NoncentralGenericModel",
+            "the calibrated model is not NoncentralGeneric")
+    # the metric scale is printed, not gated: a noncentral model's scale
+    # is weakly observed, and the reference's noncentral tests bar none
+    full = cal.compute_grid_resolution(1920, 1080, 25)
+    grids = tuple("{1}x{0}".format(*cal.grid_resolution_for_level(lv, *full))
+                  for lv in range(NONCENTRAL_LEVELS - 1, -1, -1))
+    rec.gate(st_f, report, NONCENTRAL_MEDIAN_PX, NONCENTRAL_KERNELS,
+             scale_tol=None, grids=grids)
+    for grid, counts in per_grid.items():
+        require(not counts.get("project") and not counts.get("project_blocks"),
+                f"a projection kernel launched on the noncentral path at {grid}")
+    for suffix in ("_line_offsets.png", "_lines.obj", "_info.txt"):
+        require((out / "out" / "report" / f"report_camera0{suffix}").exists(),
+                f"calibrate --report wrote no {suffix}")
+    check_pyramid_grids(torch, rec, checks, dev, "[9b]")
+    lm = {f"{st_['grid']} {i}": round(st_["iterations"]
+                                      / max(st_["seconds"], 1e-9), 3)
+          for i, st_ in enumerate(rec.stages)}
+    log(f"[9b] host seconds: init {times['init']:.2f}, state "
         f"{times['state']:.2f}, calibrate {times['calibrate']:.2f} (of it "
-        f"the float64 polish {polish:.2f}) on {smi}")
-    result["refinements_per_s"] = n_f / best
-    return result
+        f"the float64 polish {rec.stages[-1]['seconds']:.2f}), report "
+        f"{times['report']:.2f}; LM it/s per BA stage {json.dumps(lm)} on "
+        f"{smi}")
+    return {"launches": per_grid, "report": report, "times": times}
 
 
 def sparse_intrinsics_jacobian(torch, j_win, base, gh, gw, k):

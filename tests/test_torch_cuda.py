@@ -10,10 +10,12 @@ machine with a card they run without the suite's conftest:
 
 The K=5 reductions past one block's shared memory run in bands of grid
 rows (``ba/window_cuda.reduction_plan``); bands of any height give
-bit-identical results.  The two matvec kernels also read a bfloat16 j_win
-(the CG matvecs' copies): held against the float64 plain version of the
-same bf16 values, with N odd, even but not a multiple of 8, and a j_win
-view that is not 4-byte aligned (the kernels' three staging paths).
+bit-identical results.  All three window kernels also read a bfloat16
+j_win (the CG matvecs' copies for the two matvecs): held against the
+float64 plain version of the same bf16 values, with N odd, even but not a
+multiple of 8, and a j_win view that is not 4-byte aligned (the kernels'
+three staging paths); the bf16 block diagonal also agrees with the
+float32 kernel on the widened values to 1e-6.
 
 The detector and the fused corner refinement run in float32 on the card
 against float64 on the CPU (the same features, positions within 1e-3 px
@@ -292,7 +294,7 @@ def test_window_apply_jtw_compact_layout(card):
 
 @pytest.mark.parametrize("name,per_knot,elems", [
     ("window_apply_jtw", lambda k: k, (4, 2)),
-    ("window_block_diag", lambda k: k * (k + 1) // 2, (4,))])
+    ("window_block_diag", lambda k: k * (k + 1) // 2, (4, 2))])
 def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot, elems):
     """The Python reckoning equals the library's own, in both layouts and
     with bands, for each j_win type a kernel reads: shared memory and rows
@@ -304,10 +306,13 @@ def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot, elems):
             for gh, gw in ((16, 16), (45, 79), (48, 48), (56, 56), (58, 58),
                            (59, 59), (84, 84), (102, 102), (127, 127),
                            (128, 128), (160, 160), (10, 1000), (400, 400)):
+                prep = wc.prep_rows(name, k) if elem == 2 else 0
                 assert entry(k, gh, gw, elem) == wc.reduction_smem_bytes(
-                    gh, gw, k, per_knot(k), elem_bytes=elem), (k, gh, gw)
+                    gh, gw, k, per_knot(k), elem_bytes=elem,
+                    prep_rows=prep), (k, gh, gw)
                 assert rows(k, gh, gw, elem) == wc.reduction_plan(
-                    gh, gw, k, per_knot(k), elem)[1], (k, gh, gw)
+                    gh, gw, k, per_knot(k), elem, prep_rows=prep)[1], \
+                    (k, gh, gw)
     # one grid row wider than fits one float32 block: no band
     for k in wc.SUPPORTED_K:
         widest = (_cuda.MAX_SMEM_BYTES // 4 - 32 * k * 36 - 128 - 1) \
@@ -398,11 +403,61 @@ def test_bf16_jtw_narrower_bands_are_bit_identical(card, gh, gw, k,
                                                    band_rows):
     j32, base, _, ws, _ = _window_inputs(card, gh, gw, k, 30001, seed=12)
     j_win = j32.bfloat16()
-    rows, _ = wc.reduction_bands(gh, gw, k, k, 2)
+    rows, _ = wc.reduction_bands(
+        gh, gw, k, k, 2, prep_rows=wc.prep_rows("window_apply_jtw", k))
     assert band_rows < rows
     whole = wc.window_apply_jtw(j_win, base, ws, gh, gw, k)
     assert torch.equal(whole, wc.window_apply_jtw(j_win, base, ws, gh, gw, k,
                                                   band_rows=band_rows))
+
+
+@pytest.mark.parametrize("gh,gw,k,n,aligned", [
+    (16, 16, 2, 20000, True), (16, 16, 5, 20000, True),
+    (16, 16, 2, 20002, True), (21, 28, 5, 5001, True),
+    (16, 16, 2, 20000, False), (21, 28, 5, 5000, False),
+    # the 1080p default grid: K = 5 in bands
+    (45, 79, 2, 50000, True), (45, 79, 5, 50000, True)])
+def test_bf16_block_diag_matches_plain(card, gh, gw, k, n, aligned):
+    """window_block_diag on a bfloat16 j_win: within 1e-4 of the float64
+    plain version of the same bf16 values, repeatable, counted as
+    ``window_block_diag_bf16``, and within 1e-6 of the float32 kernel on
+    the widened values (the same products; the partial sums split over the
+    blocks the bf16 plan's occupancy gives)."""
+    j32, base, _, _, w = _window_inputs(card, gh, gw, k, n, seed=20 + k)
+    j_win = _bf16_view(j32, aligned)
+    ref = wc.window_block_diag_plain(j_win.double(), base, w.double(), gh,
+                                     gw, k)
+    before = dict(_cuda.launches)
+    got = wc.window_block_diag(j_win, base, w, gh, gw, k)
+    again = wc.window_block_diag(j_win, base, w, gh, gw, k)
+    torch.cuda.synchronize()
+    assert _cuda.launches["window_block_diag_bf16"] == before.get(
+        "window_block_diag_bf16", 0) + 2
+    assert _cuda.launches["window_block_diag"] == before.get(
+        "window_block_diag", 0)
+    assert got.dtype == torch.float32 and got.shape == (gh, gw, k, k)
+    assert _rel(got, ref) <= WINDOW_REL
+    assert torch.equal(got, again)
+    widened = wc.window_block_diag(j_win.float().contiguous(), base, w, gh,
+                                   gw, k)
+    assert _rel(got, widened) <= 1e-6
+    assert _rel(got, wc.window_block_diag_plain(j_win, base, w, gh, gw, k)) \
+        <= WINDOW_REL
+
+
+@pytest.mark.parametrize("gh,gw,k,band_rows", [
+    (16, 16, 2, 5), (16, 16, 5, 7), (45, 79, 5, 9)])
+def test_bf16_block_diag_narrower_bands_are_bit_identical(card, gh, gw, k,
+                                                          band_rows):
+    j32, base, _, _, w = _window_inputs(card, gh, gw, k, 30001, seed=13)
+    j_win = j32.bfloat16()
+    rows, _ = wc.reduction_bands(
+        gh, gw, k, k * (k + 1) // 2, 2,
+        prep_rows=wc.prep_rows("window_block_diag", k))
+    assert band_rows < rows
+    whole = wc.window_block_diag(j_win, base, w, gh, gw, k)
+    assert torch.equal(whole, wc.window_block_diag(j_win, base, w, gh, gw, k,
+                                                   band_rows=band_rows))
 
 
 def test_project_smem_bytes_match_the_kernels(card):
@@ -443,11 +498,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     j_win, base, tangent, ws, w = _window_inputs(card, 16, 16, 2, 64, seed=0)
     with pytest.raises(TypeError):
         wc.window_apply_j(j_win.double(), base, tangent)
-    # the block diagonal has no bfloat16 read (the LM step builds the
-    # preconditioner from the float32 blocks); the matvecs' other inputs
-    # stay float32
-    with pytest.raises(TypeError, match="float32"):
-        wc.window_block_diag(j_win.bfloat16(), base, w, 16, 16, 2)
+    # the block diagonal reads a bfloat16 j_win (its own bf16 variant);
+    # the other inputs of every window kernel stay float32
+    before = dict(_cuda.launches)
+    wc.window_block_diag(j_win.bfloat16(), base, w, 16, 16, 2)
+    assert _cuda.launches["window_block_diag_bf16"] == before.get(
+        "window_block_diag_bf16", 0) + 1
+    with pytest.raises(TypeError):
+        wc.window_block_diag(j_win.bfloat16(), base, w.bfloat16(), 16, 16, 2)
     with pytest.raises(TypeError):
         wc.window_apply_jtw(j_win.bfloat16(), base, ws.bfloat16(), 16, 16, 2)
     with pytest.raises(ValueError):

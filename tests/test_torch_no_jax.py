@@ -7,6 +7,8 @@ An AST scan of every Python file of ``camera_calibration_torch/``, of
 fresh interpreter then imports every module of the port and checks that
 neither package was loaded, and ``chip_smoke.py`` is checked to refuse to
 run, printing no result, without a card and without the repository.
+No module of the port imports matplotlib either: the card's machine has
+none, so the reports are drawn as rasters.
 """
 
 import ast
@@ -59,7 +61,9 @@ NEW_MODULES = ("models/parametric.py", "models/pinhole.py", "ba/gn.py",
                "features/pattern.py", "features/apriltag.py",
                "features/degrade.py", "features/refinement.py",
                "features/patch_refinement.py", "features/detector.py",
-               "cli.py")
+               "cli.py", "init/noncentral_init.py", "io/meshlab.py",
+               "report/__init__.py", "report/raster.py",
+               "report/calibration_report.py", "report/fitting_report.py")
 
 
 def test_no_forbidden_imports():
@@ -72,6 +76,16 @@ def test_no_forbidden_imports():
         tree = ast.parse(path.read_text(), filename=str(path))
         bad += [f"{path.relative_to(REPO)}: {name}"
                 for name in _imported_names(tree) if _forbidden(name)]
+    assert not bad, bad
+
+
+def test_no_matplotlib_import():
+    bad = []
+    for path in _files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [f"{path.relative_to(REPO)}: {name}"
+                for name in _imported_names(tree)
+                if name.split(".")[0] == "matplotlib"]
     assert not bad, bad
 
 

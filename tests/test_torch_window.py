@@ -97,6 +97,20 @@ def test_window_block_diag(gh, gw, k):
     np.testing.assert_array_equal(got, np.swapaxes(got.numpy(), -1, -2))
 
 
+@pytest.mark.parametrize("k", [2, 5])
+def test_plain_block_diag_widens_bf16(k):
+    """The plain block diagonal reads a bfloat16 j_win as the reference's
+    kernel does (``window_pallas.py:113``): widened to float32, the
+    products and sums in float32."""
+    j_win, base, _, _, w = _inputs(9, 11, k, seed=4)
+    j16 = torch.as_tensor(j_win, dtype=torch.float32).bfloat16()
+    base, w = torch.as_tensor(base), torch.as_tensor(w, dtype=torch.float32)
+    got = wc.window_block_diag(j16, base, w, 9, 11, k)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, wc.window_block_diag(j16.float(), base, w, 9, 11,
+                                                 k))
+
+
 def test_window_base_as_strided_view():
     """The projection kernel hands the window base over as a (2, N) buffer
     seen as (N, 2); the window ops take that strided view as it is."""
@@ -158,6 +172,38 @@ def test_reduction_smem_bytes(gh, gw, k, per_knot, layout, formula, total):
     assert wc.reduction_layout(gh, gw, k, per_knot) == layout
     assert wc.reduction_smem_bytes(gh, gw, k, per_knot) == total
     _cuda.check_smem(total, "window_block_diag")
+
+
+# A bfloat16 j_win, counted by hand: each stage's 32K rows are 64 + 8 bf16
+# (half the floats), and the tile is prepared into a float32 area of rows
+# of 64 + 4 floats: JᵀW·s keeps 16K prepared rows, the block diagonal
+# widens all 32K (the kernels' ``kPrepRows``).
+BF16_SMEM_CASES = [
+    # 16x16, K=2, JᵀW·s: 2*(64*72/2 + 256) + 32*68 + 32*2 + 256*2 floats
+    ("window_apply_jtw", 16, 16, 2, 2, 32,
+     4 * (2 * (64 * 36 + 256) + 32 * 68 + 32 * 2 + 256 * 2), 31488),
+    # 16x16, K=2, block diagonal: 64 widened rows
+    ("window_block_diag", 16, 16, 2, 3, 64,
+     4 * (2 * (64 * 36 + 256) + 64 * 68 + 32 * 2 + 256 * 3), 41216),
+    # 16x16, K=5, block diagonal: 160 widened rows
+    ("window_block_diag", 16, 16, 5, 15, 160,
+     4 * (2 * (160 * 36 + 256) + 160 * 68 + 32 * 2 + 256 * 15), 107264),
+]
+
+
+@pytest.mark.parametrize("name,gh,gw,k,per_knot,prep,formula,total",
+                         BF16_SMEM_CASES)
+def test_bf16_reduction_smem_bytes(name, gh, gw, k, per_knot, prep, formula,
+                                   total):
+    assert formula == total
+    assert wc.prep_rows(name, k) == prep
+    assert wc.reduction_layout(gh, gw, k, per_knot, 2,
+                               prep_rows=prep) == wc.RING
+    assert wc.reduction_smem_bytes(gh, gw, k, per_knot, elem_bytes=2,
+                                   prep_rows=prep) == total
+    # the bfloat16 plan is not guessed from the other numbers
+    with pytest.raises(ValueError, match="prep_rows"):
+        wc.reduction_plan(gh + 1, gw, k, per_knot, 2)
 
 
 # (gh, gw, k, per_knot): grids where one grid row does not fit one block
