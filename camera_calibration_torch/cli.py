@@ -15,21 +15,26 @@ the subcommands whose modules are ported:
   create-pattern           generate a star pattern (YAML, vector PDF, PNG)
   render-synthetic         render seeded views of a pattern
   extract-features         detector only: image directories -> dataset.bin
+  stereo-depth             PatchMatch depth on a calibrated stereo rig
+  export-colmap            export a saved state as a COLMAP text model
+  refine-colmap            bundle-adjust a COLMAP model
+  compare-point-clouds     align and compare two .obj point clouds
+  visualize-calibration    direction and distortion images of a calibration
 
 Each command prints what its reference counterpart prints.  The commands
 that compute take ``--device`` (default: the card; they raise without one,
 never dropping to the CPU).  ``calibrate --dtype mixed`` (the default)
 runs the pipeline in float32 on the device and polishes in float64 on the
 CPU; ``float64`` runs on ``--device`` in float64 (the card's kernels take
-float32 only, so that is ``--device cpu``).  ``report`` works in the
-device's type: float32 on the card (the projection kernel), float64 on
-the CPU.
+float32 only, so that is ``--device cpu``).  ``report``,
+``stereo-depth`` and ``refine-colmap`` work in the device's type: float32
+on the card (the projection kernel), float64 on the CPU.
 The state-reading tools (compare, compare-reconstructions, fit-parametric,
-localization-accuracy) load the states in float64, as the reference does.
-Reports and legends are rasters written with OpenCV, not matplotlib.
-Not here yet: ``record``, ``stereo-depth``, ``visualize-calibration``,
-``refine-colmap``, ``compare-point-clouds``, ``export-colmap`` and
-``calibrate --live_directory`` (they need modules the port has not got).
+localization-accuracy, visualize-calibration) load the states in float64,
+as the reference does.  Reports, legends and visualizations are rasters
+written with OpenCV, not matplotlib.
+Not here yet: ``record`` and ``calibrate --live_directory`` (they need
+the UI and live image input, which the port has not got).
 
 For example, ``python -m camera_calibration_torch.cli calibrate
 --dataset_files dataset.bin --output_directory out --report``.
@@ -835,6 +840,345 @@ def cmd_convert_dataset(args):
     return 0
 
 
+def cmd_stereo_depth(args):
+    """Stereo depth on a calibrated two-camera rig (the reference's
+    tools/stereo_depth_estimation.cc): plane sweep and slanted PatchMatch
+    from the left camera, a cheaper right pass for the LR consistency
+    mask, a bilateral filter and the speckle filter; writes a coloured
+    .obj cloud and a MeshLab project beside it.  Float32 on the card,
+    float64 with ``--device cpu``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.io import state_io
+    from camera_calibration_torch.io.meshlab import export_stereo_project
+    from camera_calibration_torch.ops import se3
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    device = default_device(args.device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    state, _, _ = state_io.load_ba_state(args.state_directory,
+                                         device="cpu")
+    if len(state.intrinsics) < 2:
+        print("stereo-depth needs a 2-camera rig state")
+        return 1
+    models = [state_io.load_camera_model(
+        os.path.join(args.state_directory, f"intrinsics{ci}.yaml"),
+        dtype=dtype, device=device) for ci in (0, 1)]
+    img_l = _load_gray(args.left_image).astype(np.float64) / 255.0
+    img_r = _load_gray(args.right_image).astype(np.float64) / 255.0
+    # other_tr_ref = cam1_tr_rig ∘ (cam0_tr_rig)⁻¹  (rig frame = cam0 anchor)
+    qi, ti = se3.se3_inverse(state.cam_q_rig[0], state.cam_t_rig[0])
+    qr, tr = se3.se3_compose(state.cam_q_rig[1], state.cam_t_rig[1], qi, ti)
+    r_rel = se3.quat_to_matrix(qr).numpy()
+    t_rel = tr.numpy()
+    opts = pms.PatchMatchOptions(
+        min_depth=args.min_depth, max_depth=args.max_depth,
+        num_levels=args.num_levels, iterations=args.iterations)
+    tl = torch.as_tensor(img_l, dtype=dtype, device=device)
+    trt = torch.as_tensor(img_r, dtype=dtype, device=device)
+    result_l = pms.compute_depth_map(tl, trt, models[0], models[1],
+                                     (r_rel, t_rel), opts,
+                                     algorithm=args.algorithm)
+    # LR consistency: a cheaper second pass from the right camera
+    opts_r = dataclasses.replace(opts, iterations=max(2, args.iterations // 2))
+    result_r = pms.compute_depth_map(trt, tl, models[1], models[0],
+                                     (r_rel.T, -r_rel.T @ t_rel), opts_r,
+                                     algorithm=args.algorithm)
+    mask = pms.lr_consistency_mask(result_l, result_r, models[0], models[1],
+                                   (r_rel, t_rel))
+    # post-filter chain: bilateral smoothing + speckle removal
+    inv_f = pms.bilateral_filter(result_l["inv_depth"], tl)
+    result_l = dict(result_l, inv_depth=inv_f,
+                    depth=1.0 / torch.clamp_min(inv_f, 1e-9))
+    mask = (mask & torch.isfinite(result_l["cost"])).cpu().numpy()
+    mask = pms.connected_component_filter(
+        mask, result_l["inv_depth"], min_size=args.min_component_size)
+    pms.export_point_cloud(args.output, result_l, mask=mask, colors=img_l)
+    # companion MeshLab project referencing the exported cloud
+    mlp_path = os.path.splitext(args.output)[0] + ".mlp"
+    export_stereo_project(mlp_path, [args.output])
+    print(f"wrote {args.output}: {int(mask.sum())} points "
+          f"({100.0 * mask.mean():.1f}% consistent); project {mlp_path}")
+    return 0
+
+
+def cmd_export_colmap(args):
+    """Export a saved calibration state to a COLMAP text model."""
+    from camera_calibration_torch.io import colmap, dataset_bin, state_io
+
+    state, used, fid_map = state_io.load_ba_state(args.state_directory,
+                                                  device="cpu")
+    dataset = (dataset_bin.load_datasets(args.dataset_files)
+               if args.dataset_files else None)
+    colmap.export_ba_state(args.output_directory, state, dataset, used,
+                           fid_map)
+    print(f"wrote COLMAP model to {args.output_directory}")
+    return 0
+
+
+def cmd_refine_colmap(args):
+    """Bundle-adjust a COLMAP model (poses, points and parametric
+    intrinsics) with the LM solver (the reference's
+    tools/bundle_adjustment.cc).  Float32 on the card, float64 with
+    ``--device cpu``."""
+    import numpy as np
+    import torch
+
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.ba.dataset import ObservationTable
+    from camera_calibration_torch.ba.state import BAState
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.io import colmap
+
+    device = default_device(args.device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    model = colmap.read_model(args.colmap_model, dtype=dtype, device=device)
+    cam_ids = sorted(model.cameras.keys())
+    cam_index = {cid: i for i, cid in enumerate(cam_ids)}
+    pt_ids = sorted(model.points3d.keys())
+    pt_index = {pid: i for i, pid in enumerate(pt_ids)}
+    pts = np.stack([model.points3d[pid][0] for pid in pt_ids])
+
+    # COLMAP images are independent poses: each image becomes its own
+    # imageset with the rig anchored at identity; intrinsics per camera
+    rig_q, rig_t = [], []
+    ims, cams_col, ptids, pixels = [], [], [], []
+    for si, im in enumerate(model.images):
+        rig_q.append(np.asarray(im.q, float))
+        rig_t.append(np.asarray(im.t, float))
+        for (x, y, pid) in im.points2d:
+            if pid < 0 or pid not in pt_index:
+                continue
+            ims.append(si)
+            cams_col.append(cam_index[im.camera_id])
+            ptids.append(pt_index[pid])
+            pixels.append([x, y])
+    n_cams = len(cam_ids)
+    # camera-major sort
+    order = np.lexsort((np.array(ims), np.array(cams_col)))
+    ims = np.array(ims, np.int64)[order]
+    cams_col = np.array(cams_col, np.int64)[order]
+    ptids = np.array(ptids, np.int64)[order]
+    pixels = np.array(pixels, float)[order]
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    state = BAState(
+        rig_q_global=t(np.stack(rig_q)), rig_t_global=t(np.stack(rig_t)),
+        cam_q_rig=t(np.tile([1.0, 0, 0, 0], (n_cams, 1))),
+        cam_t_rig=t(np.zeros((n_cams, 3))), points=t(pts),
+        intrinsics=tuple(model.cameras[cid] for cid in cam_ids))
+    data = []
+    for c in range(n_cams):
+        m = cams_col == c
+        data.append(ObservationTable(
+            imageset=t(ims[m], torch.int64), camera=t(cams_col[m], torch.int64),
+            point=t(ptids[m], torch.int64), pixel=t(pixels[m]),
+            valid=torch.ones(int(m.sum()), dtype=torch.bool, device=device)))
+    freeze = {f for f in args.freeze.split(",") if f}
+    # COLMAP poses live in rig_tr_global; the per-camera extrinsics are a
+    # redundant identity here and stay frozen
+    freeze.add("extrinsics")
+    options = lm_pcg.BAOptions(
+        max_lm_iterations=args.iterations, max_pcg_iterations=60,
+        cost_reduction_threshold=1e-7, freeze=tuple(sorted(freeze)))
+    state, info = lm_pcg.optimize(state, None, None, options,
+                                  data=tuple(data))
+    print(f"[refine-colmap] final cost {info['final_cost']}")
+
+    # write back
+    rq = state.rig_q_global.cpu().numpy()
+    rt = state.rig_t_global.cpu().numpy()
+    new_images = [colmap.ColmapImage(
+        image_id=im.image_id, q=rq[si], t=rt[si], camera_id=im.camera_id,
+        name=im.name, points2d=im.points2d)
+        for si, im in enumerate(model.images)]
+    pts_out = state.points.cpu().numpy()
+    new_pts = {}
+    for pid in pt_ids:
+        _, rgb, err, track = model.points3d[pid]
+        new_pts[pid] = (pts_out[pt_index[pid]], rgb, err, track)
+    new_cams = {cid: state.intrinsics[cam_index[cid]] for cid in cam_ids}
+    colmap.write_model(args.output_directory, colmap.ColmapModel(
+        cameras=new_cams, images=new_images, points3d=new_pts))
+    print(f"wrote refined COLMAP model to {args.output_directory}")
+    return 0
+
+
+def _load_obj_vertices(path):
+    import numpy as np
+
+    pts = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                v = line.split()
+                pts.append([float(v[1]), float(v[2]), float(v[3])])
+    return np.asarray(pts)
+
+
+def cmd_compare_point_clouds(args):
+    """Similarity-align two point clouds (scaled Umeyama) and print
+    distance statistics (the reference's compare_point_clouds.cc), or
+    nearest-neighbour distances without correspondences."""
+    import numpy as np
+
+    a = _load_obj_vertices(args.cloud_a)
+    b = _load_obj_vertices(args.cloud_b)
+    n = min(len(a), len(b))
+    if args.paired:
+        a, b = a[:n], b[:n]
+        # Umeyama with scaling: align a -> b
+        mu_a, mu_b = a.mean(0), b.mean(0)
+        ac, bc = a - mu_a, b - mu_b
+        r, dvals, s_mat = _svd_rotation(bc.T @ ac / n)
+        c = np.trace(np.diag(dvals) @ s_mat) / ((ac ** 2).sum() / n)
+        t = mu_b - c * r @ mu_a
+        d = np.linalg.norm(c * a @ r.T + t - b, axis=-1)
+        print(f"paired alignment: scale {c:.6f}; distance median "
+              f"{np.median(d):.6f} mean {d.mean():.6f} max {d.max():.6f}")
+    else:
+        from scipy.spatial import cKDTree
+
+        d, _ = cKDTree(b).query(a, k=1)
+        print(f"nn distances a->b: median {np.median(d):.6f} mean "
+              f"{d.mean():.6f} p90 {np.percentile(d, 90):.6f}")
+    return 0
+
+
+def _kalibr_load_cameras(path, device=None):
+    """A Kalibr camchain YAML -> {index: parametric model} in float64 on
+    ``device`` (default: the card).
+
+    pinhole + radtan -> OpenCV (k1 k2 p1 p2), pinhole + equidistant ->
+    ThinPrismFisheye (k1..k4) with the equidistant pre-step, pinhole
+    without distortion -> PinholeCamera.
+    """
+    import numpy as np
+    import torch
+    import yaml
+
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.models import parametric as pm
+    from camera_calibration_torch.models import pinhole as ph
+
+    device = default_device(device)
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    cams = {}
+    for key, spec in doc.items():
+        if not key.startswith("cam"):
+            continue
+        idx = int(key[3:])
+        fu, fv, pu, pv = spec["intrinsics"]
+        w, h = spec["resolution"]
+        dist_model = spec.get("distortion_model", "none")
+        coeffs = spec.get("distortion_coeffs", []) or []
+        params = np.zeros(12)
+        params[:4] = [fu, fv, pu, pv]
+        if dist_model == "radtan":
+            if len(coeffs) >= 2:
+                params[4:6] = coeffs[:2]  # k1 k2
+            if len(coeffs) >= 4:
+                params[10:12] = coeffs[2:4]  # p1 p2
+            cams[idx] = pm.CentralOpenCVModel(
+                params=torch.as_tensor(params, device=device),
+                width=int(w), height=int(h))
+        elif dist_model == "equidistant":
+            params[4:4 + min(4, len(coeffs))] = coeffs[:4]
+            cams[idx] = pm.CentralThinPrismFisheyeModel(
+                params=torch.as_tensor(params, device=device),
+                width=int(w), height=int(h), use_equidistant_projection=True)
+        else:
+            cams[idx] = ph.make_pinhole(fu, fv, pu, pv, int(w), int(h),
+                                        device=device)
+    return cams
+
+
+def camera_visualization(model):
+    """The arrays of ``visualize-calibration``'s two images of a camera:
+    the observation directions as RGB (120, 160, 3) on a pixel lattice,
+    and the distortion displacement (120, 160) in pixels from the pinhole
+    fitted to the central directions (NaN where invalid; None when fewer
+    than 17 directions lie within 0.2 of the axis)."""
+    import numpy as np
+
+    w, h = model.width, model.height
+    ys = np.linspace(1, h - 2, 120)
+    xs = np.linspace(1, w - 2, 160)
+    gx, gy = np.meshgrid(xs, ys)
+    dirs, valid = _unproject_np(model, np.stack([gx, gy], -1).reshape(-1, 2))
+    dirs = dirs.reshape(len(ys), len(xs), 3)
+    valid = valid.reshape(len(ys), len(xs))
+    rgb = 0.5 * (dirs + 1.0)
+    rgb[~valid] = 0.0
+    # distortion displacement: |pixel − ideal pinhole projection| with the
+    # pinhole fitted to the central region
+    z = np.maximum(dirs[..., 2], 1e-9)
+    nx = dirs[..., 0] / z
+    ny = dirs[..., 1] / z
+    center = valid & (np.hypot(nx, ny) < 0.2)
+    if center.sum() <= 16:
+        return rgb, None
+    a = np.zeros((2 * int(center.sum()), 4))
+    a[0::2, 0] = nx[center]
+    a[0::2, 2] = 1.0
+    a[1::2, 1] = ny[center]
+    a[1::2, 3] = 1.0
+    rhs = np.stack([gx[center], gy[center]], -1).reshape(-1)
+    sol, *_ = np.linalg.lstsq(a, rhs, rcond=None)
+    disp = np.hypot(sol[0] * nx + sol[2] - gx, sol[1] * ny + sol[3] - gy)
+    disp[~valid] = np.nan
+    return rgb, disp
+
+
+def _visualize_camera(model, base_path):
+    """Write ``<base>_directions.png`` and ``<base>_distortion.png``
+    (viridis over the displacement's range) as rasters."""
+    import numpy as np
+
+    from camera_calibration_torch.report import raster
+
+    rgb, disp = camera_visualization(model)
+    raster.write_png(base_path + "_directions.png", raster.rgb_to_bgr8(rgb))
+    if disp is not None:
+        raster.write_png(base_path + "_distortion.png", raster.colormapped(
+            disp, np.nanmin(disp), np.nanmax(disp), "viridis"))
+
+
+def cmd_visualize_calibration(args):
+    """Visualize a calibration from a Kalibr camchain YAML, a COLMAP
+    model directory or a state directory (the reference's
+    tools/visualize_calibration.cc)."""
+    os.makedirs(args.output_directory, exist_ok=True)
+    if args.kalibr_yaml:
+        cams = _kalibr_load_cameras(args.kalibr_yaml, args.device)
+        tag = "kalibr"
+    elif args.colmap_model:
+        from camera_calibration_torch.io import colmap
+
+        model = colmap.read_model(args.colmap_model, device=args.device)
+        cams = {cid - 1: c for cid, c in model.cameras.items()}
+        tag = "colmap"
+    elif args.state_directory:
+        state, _, _ = _load_state64(args.state_directory, args.device)
+        cams = dict(enumerate(state.intrinsics))
+        tag = "state"
+    else:
+        print("need --kalibr_yaml, --colmap_model, or --state_directory")
+        return 1
+    for idx, cam in cams.items():
+        base = os.path.join(args.output_directory, f"{tag}_camera{idx}")
+        _visualize_camera(cam, base)
+        print(f"wrote {base}_directions.png")
+    return 0
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="camera-calibration-torch",
@@ -998,6 +1342,52 @@ def build_parser():
     p.add_argument("--first_tag_index", type=int, default=0)
     p.add_argument("--dpi_pixels_per_square", type=int, default=64)
     p.set_defaults(func=cmd_create_pattern)
+
+    p = sub.add_parser("stereo-depth", help="depth estimation on a stereo rig")
+    p.add_argument("--state_directory", required=True)
+    p.add_argument("--left_image", required=True)
+    p.add_argument("--right_image", required=True)
+    p.add_argument("--output", required=True, help="output .obj point cloud")
+    p.add_argument("--min_depth", type=float, default=0.2)
+    p.add_argument("--max_depth", type=float, default=20.0)
+    p.add_argument("--num_levels", type=int, default=96)
+    p.add_argument("--iterations", type=int, default=8)
+    p.add_argument("--algorithm", default="patch_match",
+                   choices=["patch_match", "plane_sweep"])
+    p.add_argument("--min_component_size", type=int, default=50)
+    device_flag(p)
+    p.set_defaults(func=cmd_stereo_depth)
+
+    p = sub.add_parser("visualize-calibration",
+                       help="visualize a Kalibr/COLMAP/state calibration")
+    p.add_argument("--kalibr_yaml")
+    p.add_argument("--colmap_model")
+    p.add_argument("--state_directory")
+    p.add_argument("--output_directory", required=True)
+    device_flag(p)
+    p.set_defaults(func=cmd_visualize_calibration)
+
+    p = sub.add_parser("refine-colmap", help="bundle-adjust a COLMAP model")
+    p.add_argument("--colmap_model", required=True)
+    p.add_argument("--output_directory", required=True)
+    p.add_argument("--iterations", type=int, default=30)
+    p.add_argument("--freeze", default="",
+                   help="comma list: poses,points,intrinsics")
+    device_flag(p)
+    p.set_defaults(func=cmd_refine_colmap)
+
+    p = sub.add_parser("compare-point-clouds",
+                       help="align + compare two .obj point clouds")
+    p.add_argument("cloud_a")
+    p.add_argument("cloud_b")
+    p.add_argument("--paired", action="store_true")
+    p.set_defaults(func=cmd_compare_point_clouds)
+
+    p = sub.add_parser("export-colmap", help="export state to a COLMAP model")
+    p.add_argument("--state_directory", required=True)
+    p.add_argument("--output_directory", required=True)
+    p.add_argument("--dataset_files")
+    p.set_defaults(func=cmd_export_colmap)
 
     p = sub.add_parser("render-synthetic", help="render a synthetic dataset")
     p.add_argument("--pattern_file", required=True)

@@ -69,6 +69,16 @@ def quat_rotate(q, v):
     return v + 2.0 * (w * uv + _cross(u, uv))
 
 
+def se3_compose(qa, ta, qb, tb):
+    """(qa, ta) ∘ (qb, tb): first apply b, then a."""
+    return quat_mul(qa, qb), quat_rotate(qa, tb) + ta
+
+
+def se3_inverse(q, t):
+    qi = quat_conj(q)
+    return qi, -quat_rotate(qi, t)
+
+
 def quat_to_matrix(q):
     """(..., 4) -> (..., 3, 3) rotation matrix."""
     w, x, y, z = q.unbind(-1)

@@ -139,10 +139,36 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    reference's test asks only > 0.05), poses about 12° off; another
    machine's LAPACK rejects the same triple (handedness 0.008) and
    bootstraps from the next (see NONCENTRAL_LEVELS);
-10. prints one JSON line listing every kernel (with its launches per
-   pipeline grid of [7], of [9a] and, for the K = 5 window rows, of
-   [9b]), the ``nvidia-smi`` line of the card, and last
-   ``{"ok": true, "device": {...}}``.
+10. estimates stereo depth at 1920×1080 through the command line: a rig
+   of two CentralGeneric cameras on ``problems.pinhole_model``'s 45×79
+   grid (fx = 0.85·1920) 0.2 m apart, saved with ``state_io``; two
+   scenes rendered on the host as the reference package's stereo tests
+   render them (a fronto-parallel plane at 2 m and the slanted plane
+   z = 2 + 0.6·x, their texture's frequencies scaled so that a period
+   spans about 10–20 px); ``cli.main stereo-depth`` with its defaults (96
+   levels, 8 PatchMatch rounds) on both and with ``--algorithm
+   plane_sweep`` on the slanted one.  It requires the reference tests'
+   bars (fronto: more than half the pixels good, median relative depth
+   error under 0.02; slanted: PatchMatch under 0.02 and under 0.7× the
+   plane sweep's error, median |n·n_gt| above 0.95), a non-empty .obj,
+   ``project`` launched 365 times per PatchMatch run (219 per plane
+   sweep), and ``project`` at the stereo shape (2,073,600 warm-started
+   directions, 6 iterations) within the projection tolerance of its plain
+   version and bitwise repeatable; it prints the host seconds of each
+   stage, the peak device memory and a ``torch.profiler`` reading of one
+   PatchMatch round, and times ``project`` at that shape;
+11. runs the COLMAP tools and ``visualize-calibration`` on [9a]'s
+   calibration: the OpenCV model that [9a]'s ``fit-parametric`` fitted,
+   with [9a]'s poses, saved as a state; ``export-colmap`` with [8]'s
+   dataset; ``refine-colmap`` of the export on the card (the cost must
+   fall); ``compare-point-clouds`` of [10]'s fronto cloud with the true
+   plane's (median distance under 0.04 m); ``visualize-calibration`` of
+   [9a]'s state and of the refined COLMAP model.  Every file must be
+   written;
+12. prints one JSON line listing every kernel (with its launches per
+   pipeline grid of [7], of [9a], for the K = 5 window rows of [9b], and
+   for ``project`` of each [10] run), the ``nvidia-smi`` line of the
+   card, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA card, when
 the package is missing, or when any phase fails.
@@ -268,6 +294,23 @@ NONCENTRAL_SEED, NONCENTRAL_INIT_SEED = 1, 2
 NONCENTRAL_MEDIAN_PX = 0.01
 NONCENTRAL_KERNELS = ("window_apply_j", "window_apply_jtw",
                       "window_block_diag")
+
+
+STEREO_SIZE = (1920, 1080)
+STEREO_GRID = (45, 79)
+STEREO_BASELINE = 0.2
+STEREO_TEXTURE_SCALE = 12.0  # the reference tests' texture, 12x finer
+# the reference's stereo tests' bars (tests/test_stereo.py)
+STEREO_GOOD_FRACTION = 0.5
+STEREO_MEDIAN_REL = 0.02
+STEREO_PM_VS_PS = 0.7
+STEREO_NORMAL_DOT = 0.95
+# project launches of one stereo-depth run at the command line's defaults
+# (96 levels, 8 rounds, mutation_count 2, 6 polish rounds):
+# left sweep 96 + 1 + 12, left PatchMatch 1 + 8·12, right sweep 109,
+# right PatchMatch 1 + 4·12, LR mask 1
+STEREO_LAUNCHES = {"patch_match": 365, "plane_sweep": 219}
+COLMAP_NN_MEDIAN_M = 0.04  # STEREO_MEDIAN_REL of the 2 m plane
 
 
 def log(*args):
@@ -1456,6 +1499,18 @@ def main() -> int:
                 grid: counts.get(row["name"][:-len("_k5")], 0)
                 for grid, counts in nc_run["launches"].items()}
 
+    # ------------------------------- 10. stereo depth at 1920x1080
+    stereo = stereo_pipeline(torch, smi, checks)
+    log(f"[10] whole run {time.perf_counter() - t_start:.1f} s")
+
+    # ----------------------- 11. the COLMAP tools and the visualization
+    colmap_pipeline(torch, smi, cli_run, images["dataset"], stereo)
+    log(f"[11] whole run {time.perf_counter() - t_start:.1f} s")
+    for row in kernels:
+        if row["name"] == "project":
+            row["stereo_launches"] = stereo["launches"]
+            row["stereo"] = stereo["project"]
+
     for row in kernels:
         extra = rows_k5.get(row["name"][:-len("_k5")], {}).get("at_45x79")
         if row["name"].endswith("_k5") and extra:
@@ -2153,9 +2208,16 @@ def cli_pipeline(torch, smi, images, checks, device=None):
     # port's eager jvp fits ~9x longer): the calibration's frame is rotated
     # against the rendering camera's (``compare`` above reads it), so the
     # residual fields show the rotation too
-    require(cli.main(["fit-parametric", "--state_directory",
-                      str(out / "state"), "--output_directory",
-                      str(out / "fit"), *on]) == 0, "fit-parametric failed")
+    from camera_calibration_torch.models import parametric as pm
+
+    fits = {}
+    fit = pm.fit_parametric_to_dense
+    with mock.patch.object(pm, "fit_parametric_to_dense", lambda *a, **k: (
+            fits.setdefault(type(a[0]).__name__, fit(*a, **k)))):
+        require(cli.main(["fit-parametric", "--state_directory",
+                          str(out / "state"), "--output_directory",
+                          str(out / "fit"), *on]) == 0,
+                "fit-parametric failed")
     rec.sync()
     times["fit_parametric"] = time.perf_counter() - t0
     for name in ("central_thin_prism_fisheye", "central_opencv",
@@ -2168,7 +2230,8 @@ def cli_pipeline(torch, smi, images, checks, device=None):
             "create-legends wrote no three legends")
     log(f"[9a] host seconds per stage: {json.dumps(times, sort_keys=True)} "
         f"on {smi}")
-    return {"launches": per_grid, "report": report, "times": times}
+    return {"launches": per_grid, "report": report, "times": times,
+            "out_dir": out, "fits": fits}
 
 
 def noncentral_pipeline(torch, smi, checks, device=None):
@@ -2244,6 +2307,360 @@ def noncentral_pipeline(torch, smi, checks, device=None):
         f"{times['report']:.2f}; LM it/s per BA stage {json.dumps(lm)} on "
         f"{smi}")
     return {"launches": per_grid, "report": report, "times": times}
+
+
+def stereo_texture(u, v):
+    """The reference's stereo tests' texture (tests/test_stereo.py)."""
+    return (0.5 + 0.2 * np.sin(37.0 * u) * np.cos(29.0 * v)
+            + 0.15 * np.sin(11.0 * u + 23.0 * v)
+            + 0.15 * np.cos(53.0 * u - 17.0 * v))
+
+
+def render_plane(torch, model64, center, slope, scale):
+    """(image, ray depth) of the textured plane z = 2 + slope·x seen by a
+    camera at ``center`` (world = the left camera's frame), as the
+    reference's stereo tests render it, with the texture coordinates
+    scaled by ``scale``; rays from ``model64`` (float64)."""
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    g = model64.grid
+    d = pms.pixel_directions(model64, model64.height, model64.width,
+                             g.dtype, g.device).cpu().numpy()
+    c = np.asarray(center, float)
+    s = (2.0 - (c[2] - slope * c[0])) / (d[..., 2] - slope * d[..., 0])
+    pts = c + s[..., None] * d
+    return (np.clip(stereo_texture(pts[..., 0] * scale, pts[..., 1] * scale),
+                    0, 1), s)
+
+
+@contextmanager
+def stereo_stages(torch, dev, times, captured):
+    """Time ``stereo-depth``'s stages into ``times`` (host seconds, the
+    card synchronised around each) and keep the left pass's results and
+    its PatchMatch inputs in ``captured``."""
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    calls = {"depth_maps": 0}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(key, fn, keep=None):
+        def run(*args, **kw):
+            side = "left" if calls["depth_maps"] <= 1 else "right"
+            name = key.format(side=side)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            if keep is not None and side == "left":
+                captured[keep] = (args, out)
+            return out
+        return run
+
+    def depth_map(*args, **kw):
+        calls["depth_maps"] += 1
+        return compute(*args, **kw)
+
+    compute = timed("{side}_pass", pms.compute_depth_map, "left")
+    with mock.patch.object(pms, "compute_depth_map", depth_map), \
+            mock.patch.object(pms, "_plane_sweep_jit",
+                              timed("{side}_sweep", pms._plane_sweep_jit)), \
+            mock.patch.object(pms, "_patch_match_jit",
+                              timed("{side}_patch_match", pms._patch_match_jit,
+                                    "patch_match")), \
+            mock.patch.object(pms, "lr_consistency_mask",
+                              timed("lr_mask", pms.lr_consistency_mask)), \
+            mock.patch.object(pms, "bilateral_filter",
+                              timed("bilateral", pms.bilateral_filter)), \
+            mock.patch.object(pms, "connected_component_filter",
+                              timed("components",
+                                    pms.connected_component_filter)), \
+            mock.patch.object(pms, "export_point_cloud",
+                              timed("export", pms.export_point_cloud)):
+        yield
+
+
+def stereo_pipeline(torch, smi, checks, device=None, size=STEREO_SIZE,
+                    grid=STEREO_GRID):
+    """[10]: ``stereo-depth`` at ``size`` on a saved two-camera rig (see the
+    module docstring).  ``device``: the card by default.  Returns the
+    project launches per run and ``project``'s numbers at the stereo
+    shape."""
+    import cv2
+
+    from camera_calibration_torch import _cuda, cli, problems
+    from camera_calibration_torch.ba.state import BAState
+    from camera_calibration_torch.io import state_io
+    from camera_calibration_torch.models import central_generic as cg
+    from camera_calibration_torch.models import central_generic_cuda as cgc
+    from camera_calibration_torch.models import protocol
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    on = [] if device is None else ["--device", str(dev)]
+    w, h = size
+    out = _cuda.BUILD_ROOT / "stereo"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    model = problems.pinhole_model(w, h, grid[1], grid[0], device=dev)
+    model64 = problems.pinhole_model(w, h, grid[1], grid[0], device=dev,
+                                     dtype=torch.float64)
+    baseline = np.array([-STEREO_BASELINE, 0.0, 0.0])
+    one = torch.tensor([[1.0, 0, 0, 0]], dtype=torch.float64)
+    state_io.save_ba_state(out / "rig", BAState(
+        rig_q_global=one, rig_t_global=torch.zeros((1, 3), dtype=torch.float64),
+        cam_q_rig=one.repeat(2, 1),
+        cam_t_rig=torch.as_tensor(np.stack([np.zeros(3), baseline])),
+        points=torch.zeros((1, 3), dtype=torch.float64),
+        intrinsics=(model, model)), [True], {0: 0})
+    scenes = {}
+    for name, slope, scale in (("fronto", 0.0, 0.8 * STEREO_TEXTURE_SCALE),
+                               ("slanted", 0.6, 1.1 * STEREO_TEXTURE_SCALE)):
+        paths = []
+        for side, center in (("left", np.zeros(3)), ("right", -baseline)):
+            img, depth = render_plane(torch, model64, center, slope, scale)
+            paths.append(out / f"{name}_{side}.png")
+            cv2.imwrite(str(paths[-1]), np.round(img * 255).astype(np.uint8))
+            if side == "left":
+                truth = depth
+        scenes[name] = (paths, truth)
+    log(f"[10] rig of two {w}x{h} cameras on a {grid[0]}x{grid[1]} grid, "
+        f"{STEREO_BASELINE} m baseline; scenes rendered in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    runs, launches, clouds = {}, {}, {}
+    for scene, algorithm in (("fronto", "patch_match"),
+                             ("slanted", "patch_match"),
+                             ("slanted", "plane_sweep")):
+        label = f"{scene} {algorithm}"
+        (left, right), _ = scenes[scene]
+        cloud = out / f"{scene}_{algorithm}.obj"
+        times, captured = {}, {}
+        held = 0.0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2 ** 30
+        _cuda.reset_launches()
+        t1 = time.perf_counter()
+        with stereo_stages(torch, dev, times, captured):
+            rc = cli.main(["stereo-depth", "--state_directory",
+                           str(out / "rig"), "--left_image", str(left),
+                           "--right_image", str(right), "--output",
+                           str(cloud), "--algorithm", algorithm, *on])
+        times["total"] = time.perf_counter() - t1
+        require(rc == 0, f"stereo-depth {label} exited with {rc}")
+        launches[label] = _cuda.launches.get("project", 0)
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if dev.type == "cuda" else float("nan"))
+        n_lines = sum(1 for _ in open(cloud))
+        require(n_lines > 0, f"stereo-depth {label} wrote an empty cloud")
+        log(f"[10] stereo-depth {label}: {n_lines} points, {launches[label]} "
+            f"project launches, peak device memory {peak:.2f} GiB "
+            f"({peak - held:.2f} GiB above the {held:.2f} GiB held before "
+            f"the run); host "
+            f"seconds {json.dumps({k: round(v, 3) for k, v in times.items()}, sort_keys=True)} "
+            f"on {smi}")
+        runs[label] = captured
+        clouds[label] = cloud
+        expected = STEREO_LAUNCHES[algorithm]
+        require(device is not None or launches[label] == expected,
+                f"stereo-depth {label}: {launches[label]} project launches, "
+                f"{expected} expected")
+
+    def interior(margin):
+        m = np.zeros((h, w), bool)
+        m[margin:-margin, margin:-margin] = True
+        return m
+
+    def left_result(label):
+        return {k: v.cpu().numpy() for k, v in runs[label]["left"][1].items()}
+
+    # fronto: the reference test's bars
+    res = left_result("fronto patch_match")
+    gt = scenes["fronto"][1]
+    good = interior(8) & np.isfinite(res["cost"]) & (res["cost"] < 0.2)
+    rel = np.abs(res["depth"][good] - gt[good]) / gt[good]
+    log(f"[10] fronto plane: {100 * good.mean():.1f}% good pixels, median "
+        f"relative depth error {np.median(rel):.5f}")
+    require(good.mean() > STEREO_GOOD_FRACTION,
+            f"fronto: {good.mean():.3f} good pixels")
+    require(np.median(rel) < STEREO_MEDIAN_REL,
+            f"fronto: median relative error {np.median(rel)}")
+
+    # slanted: PatchMatch against the plane sweep, and the normals
+    gt = scenes["slanted"][1]
+    errs = {}
+    for algorithm in ("patch_match", "plane_sweep"):
+        res = left_result(f"slanted {algorithm}")
+        ok = interior(10) & np.isfinite(res["cost"])
+        errs[algorithm] = float(np.median(
+            np.abs(res["depth"][ok] - gt[ok]) / gt[ok]))
+    n_gt = np.array([0.6, 0.0, -1.0]) / np.hypot(0.6, 1.0)
+    normals = left_result("slanted patch_match")["normals"]
+    dots = float(np.median(np.abs(normals[interior(10)] @ n_gt)))
+    log(f"[10] slanted plane: median relative depth error PatchMatch "
+        f"{errs['patch_match']:.5f}, plane sweep {errs['plane_sweep']:.5f}; "
+        f"median |n·n_gt| {dots:.4f}")
+    require(errs["patch_match"] < STEREO_MEDIAN_REL,
+            f"slanted: PatchMatch error {errs['patch_match']}")
+    require(errs["patch_match"] < STEREO_PM_VS_PS * errs["plane_sweep"],
+            f"slanted: PatchMatch {errs['patch_match']} not under "
+            f"{STEREO_PM_VS_PS}x the plane sweep's {errs['plane_sweep']}")
+    require(dots > STEREO_NORMAL_DOT, f"slanted: median |n·n_gt| {dots}")
+
+    # one PatchMatch round of the fronto run under the profiler
+    pm_args = runs["fronto patch_match"]["patch_match"][0]
+    evaluate, state0 = pms._patch_match_setup(*pm_args)
+    opts = pm_args[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(opts.seed)
+    draws = pms._draws(gen, opts, h, w, pm_args[0])
+    before = _cuda.launches.get("project", 0)
+    if dev.type == "cuda":
+        _, *prof = device_profile(torch, lambda: pms._patch_match_round(
+            evaluate, pm_args[2], state0, *draws, opts),
+            "stereo_round_trace.json")
+        log_profile("[10]", "one PatchMatch round at "
+                    f"{w}x{h} ({_cuda.launches.get('project', 0) - before} "
+                    "project launches)", *prof, smi)
+
+    # project at the stereo shape: the warm-started directions of the
+    # level nearest 2 m, from the level before it
+    dirs = pm_args[2].reshape(-1, 3)
+    levels = torch.linspace(1.0 / opts.max_depth, 1.0 / opts.min_depth,
+                            opts.num_levels, dtype=torch.float64)
+    k = int(torch.argmin((levels - 0.5).abs()))
+    r_rel, t_rel = pm_args[3], pm_args[4]
+    prev = (dirs / float(levels[k - 1])) @ r_rel.T + t_rel
+    cur = (dirs / float(levels[k])) @ r_rel.T + t_rel
+    warm, _, _ = protocol.project_points(model, prev, max_iterations=6)
+    d = (cur / torch.linalg.vector_norm(cur, dim=-1, keepdim=True)).contiguous()
+    g0 = cg.pixel_to_grid(model, warm).contiguous()
+    lo, hi = cg._static_clamp_bounds(model)
+    eps = cg.default_eps(torch.float32)
+    n = d.shape[0]
+    project = {"points": n, "grid": f"{grid[0]}x{grid[1]}", "iterations": 6}
+    project["max_abs_err"] = checks["project"](model, d, g0, 6,
+                                               f"stereo {w}x{h}")
+    a = cgc.project_grid_coords(model.grid, d, g0, lo, hi, 6, eps)
+    b = cgc.project_grid_coords(model.grid, d, g0, lo, hi, 6, eps)
+    require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+            "project at the stereo shape is not bitwise repeatable")
+    if dev.type == "cuda":
+        fn = lambda: cgc.project_grid_coords(model.grid, d, g0, lo, hi, 6,  # noqa: E731
+                                             eps)
+        _, iters = cgc.lm_loop_plain(model.grid, d, g0, lo, hi, 6, eps)
+        b_ms, b_by = bound_ms(*projection_work(
+            n, grid[0] * grid[1] * 12, FLOP_LM_ITERATION * float(iters.sum()),
+            False))
+        project.update(
+            ms=time_ms(torch, fn, reps=20, warmup=3),
+            graph_ms=time_ms(torch, fn, reps=20, warmup=1, graph=True),
+            cold_graph_ms=cold_graph_ms(torch, fn, reps=20),
+            plain_ms=time_ms(torch, lambda: cgc.project_grid_coords_plain(
+                model.grid, d, g0, lo, hi, 6, eps), reps=2, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            mean_lm_iterations=float(iters.float().mean()))
+        log(f"[10] project at the stereo shape ({n} warm-started directions, "
+            f"{grid[0]}x{grid[1]}, 6 iterations): {project['ms']:.4f} ms, "
+            f"graph {project['graph_ms']:.4f} ms, L2-cold graph "
+            f"{project['cold_graph_ms']:.4f} ms (plain "
+            f"{project['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{project['mean_lm_iterations']:.3f} LM iterations each) on "
+            f"{smi}")
+    return {"launches": launches, "project": project, "out_dir": out,
+            "clouds": clouds, "truth": scenes["fronto"][1],
+            "dirs": pm_args[2].cpu().numpy()}
+
+
+def colmap_pipeline(torch, smi, cli_run, dataset, stereo, device=None):
+    """[11]: the COLMAP tools and ``visualize-calibration`` on [9a]'s
+    calibration and [10]'s cloud (see the module docstring)."""
+    import dataclasses as dc
+    import io
+    from contextlib import redirect_stdout
+
+    from camera_calibration_torch import _cuda, cli
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.io import colmap, state_io
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    on = [] if device is None else ["--device", str(device)]
+    out = _cuda.BUILD_ROOT / "colmap"
+    out.mkdir(parents=True, exist_ok=True)
+    times = {}
+    state, used, fid = state_io.load_ba_state(cli_run["out_dir"] / "state",
+                                              device="cpu")
+    fitted = cli_run["fits"]["CentralOpenCVModel"]
+    opencv = dc.replace(fitted, params=fitted.params.detach().cpu().double())
+    state_io.save_ba_state(out / "state", dc.replace(
+        state, intrinsics=(opencv,)), used, fid)
+    t0 = time.perf_counter()
+    require(cli.main(["export-colmap", "--state_directory",
+                      str(out / "state"), "--output_directory",
+                      str(out / "colmap"), "--dataset_files",
+                      str(dataset)]) == 0, "export-colmap failed")
+    times["export_colmap"] = time.perf_counter() - t0
+    exported = colmap.read_model(out / "colmap", device="cpu")
+    n_obs = sum(len(im.points2d) for im in exported.images)
+    require(len(exported.images) == sum(used) and n_obs > 0,
+            "export-colmap wrote the wrong images")
+
+    infos = []
+    optimize = lm_pcg.optimize
+    t0 = time.perf_counter()
+    with mock.patch.object(lm_pcg, "optimize", lambda *a, **k: infos.append(
+            optimize(*a, **k)) or infos[-1]):
+        require(cli.main(["refine-colmap", "--colmap_model",
+                          str(out / "colmap"), "--output_directory",
+                          str(out / "refined"), "--iterations", "10",
+                          *on]) == 0, "refine-colmap failed")
+    times["refine_colmap"] = time.perf_counter() - t0
+    hist = infos[-1][1]["history"]
+    first, last = hist[0]["cost"], infos[-1][1]["final_cost"]
+    log(f"[11] refine-colmap: {len(exported.images)} images, {n_obs} "
+        f"observations, {len(hist)} LM iterations, cost {first:.6g} -> "
+        f"{last:.6g} on {smi}")
+    require(last < first, "refine-colmap did not lower the cost")
+    for name in ("cameras.txt", "images.txt", "points3D.txt"):
+        require((out / "refined" / name).exists(),
+                f"refine-colmap wrote no {name}")
+
+    # [10]'s fronto cloud against the true plane's points (every 2nd pixel)
+    truth = out / "fronto_truth.obj"
+    sub = (slice(None, None, 2), slice(None, None, 2))
+    pms.export_point_cloud(truth, {"depth": stereo["truth"][sub],
+                                   "dirs": stereo["dirs"][sub]})
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(text):
+        require(cli.main(["compare-point-clouds",
+                          str(stereo["clouds"]["fronto patch_match"]),
+                          str(truth)]) == 0, "compare-point-clouds failed")
+    times["compare_point_clouds"] = time.perf_counter() - t0
+    line = text.getvalue().strip()
+    median = float(line.split("median ")[1].split()[0])
+    log(f"[11] compare-point-clouds (stereo cloud -> true plane): {line}")
+    require(median < COLMAP_NN_MEDIAN_M,
+            f"the stereo cloud lies a median {median} m from the plane")
+
+    t0 = time.perf_counter()
+    for tag, args in (("state", ["--state_directory",
+                                 str(cli_run["out_dir"] / "state")]),
+                      ("colmap", ["--colmap_model", str(out / "refined")])):
+        require(cli.main(["visualize-calibration", *args,
+                          "--output_directory", str(out / "vis"), *on]) == 0,
+                f"visualize-calibration of the {tag} failed")
+        for suffix in ("_directions.png", "_distortion.png"):
+            require((out / "vis" / f"{tag}_camera0{suffix}").exists(),
+                    f"visualize-calibration wrote no {tag} {suffix}")
+    times["visualize_calibration"] = time.perf_counter() - t0
+    log(f"[11] host seconds per command: "
+        f"{json.dumps({k: round(v, 3) for k, v in times.items()}, sort_keys=True)} "
+        f"on {smi}")
 
 
 def sparse_intrinsics_jacobian(torch, j_win, base, gh, gw, k):

@@ -37,6 +37,7 @@ from camera_calibration_torch.ba import window_cuda as wc
 from camera_calibration_tpu.ba import lm_pcg as J
 from camera_calibration_tpu.ba import residuals as jres
 from camera_calibration_tpu.ba.dataset import split_by_camera, to_grid_layout
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-9, atol=1e-12)
 STATE_TOL = dict(rtol=1e-9, atol=1e-10)

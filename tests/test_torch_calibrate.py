@@ -21,7 +21,7 @@ a module fixture that records every BA stage.  Held against each other:
   float64 pipeline's final cost (1e-3 relative); ``convert_model`` (central to noncentral) reproduces its
   source's directions.
 
-The module runs with one intra-op thread (see ``_one_torch_thread``).
+The module runs with one intra-op thread (``tests/torch_threads.py``).
 
 Also: a CPU check that at the grid of a 2448×2048 camera at 25 px per cell
 the ``project_blocks`` kernel's plan reads its fields from device memory
@@ -47,6 +47,7 @@ from camera_calibration_tpu.init import state_init as jsi
 from camera_calibration_tpu.models import central_generic as jcg
 from camera_calibration_tpu.models import noncentral_generic as jncg
 import torch_e2e_init
+from torch_threads import one_torch_thread  # noqa: F401
 
 OPTIONS = dict(num_pyramid_levels=2, approx_pixels_per_cell=40,
                outlier_removal_factor=8.0, final_iterations=30,
@@ -55,18 +56,6 @@ OPTIONS = dict(num_pyramid_levels=2, approx_pixels_per_cell=40,
 
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs in
-    several worker processes, and the fits' many small parallel ops slow
-    down by an order of magnitude when their thread pools oversubscribe
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _directions(model, step=7):

@@ -31,6 +31,7 @@ from camera_calibration_tpu.ba import residuals as jres
 from camera_calibration_tpu.ba import state as jstate
 from camera_calibration_tpu.models import central_generic as jcg
 from camera_calibration_tpu.ops import manifolds as jman
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 64, 48
 PX_TOL = dict(rtol=0.0, atol=1e-9)

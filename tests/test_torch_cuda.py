@@ -846,3 +846,144 @@ def test_corner_refinement_on_the_card_matches_the_cpu(card):
     gaps = np.abs(got[both, :2] - want[both, :2]).max(axis=1)
     assert np.percentile(gaps, 95) <= 1e-3 and gaps.max() <= 1e-2, gaps.max()
     assert np.median(np.linalg.norm(got[both, :2] - gt[both], axis=1)) < 0.05
+
+
+def _stereo_scene(card, w=240, h=136, baseline=0.2):
+    """A float32 rig of two ``problems.pinhole_model`` cameras (8×12 grid)
+    ``baseline`` apart, both views of the textured slanted plane
+    z = 2 + 0.6·x (the reference stereo tests' texture at periods of
+    about 10 px) and PatchMatch options of the command line's window."""
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    model = problems.pinhole_model(w, h, 12, 8, device=card)
+    d = pms.pixel_directions(
+        problems.pinhole_model(w, h, 12, 8, device="cpu",
+                               dtype=torch.float64), h, w, torch.float64,
+        "cpu").numpy()
+    views = []
+    for cx in (0.0, baseline):
+        c = np.array([cx, 0.0, 0.0])
+        s = (2.0 - (c[2] - 0.6 * c[0])) / (d[..., 2] - 0.6 * d[..., 0])
+        p = c + s[..., None] * d
+        u, v = p[..., 0] * 1.1 * w / 160, p[..., 1] * 1.1 * w / 160
+        tex = (0.5 + 0.2 * np.sin(37.0 * u) * np.cos(29.0 * v)
+               + 0.15 * np.sin(11.0 * u + 23.0 * v)
+               + 0.15 * np.cos(53.0 * u - 17.0 * v))
+        views.append(torch.as_tensor(np.clip(tex, 0, 1), dtype=torch.float32,
+                                     device=card))
+    r = torch.eye(3, device=card)
+    t = torch.tensor([-baseline, 0.0, 0.0], device=card)
+    return model, views, r, t
+
+
+def test_projection_at_the_stereo_shape(card):
+    """``project`` at the shape of a 1080p stereo warp: all 2,073,600
+    pixel rays of one camera of a 0.2 m rig on a plane at 2 m, projected
+    into the other camera (45×79 grid, 6 iterations), warm-started from
+    the kernel's projections of the level before (1.9 m), against the
+    plain version: valid-mask flips on at most 0.1% of the points, the
+    points valid in both within 1e-3 px at the 99.9th percentile and
+    5e-2 px at most, and the kernel bitwise repeatable.  Not PX_TOL for
+    every point: at the warp's 6 iterations the points that stop at the
+    cap are not converged, and the two versions' rounding takes their LM
+    paths apart there (2e-2 px at most, measured on the H100)."""
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    model = problems.pinhole_model(1920, 1080, 79, 45, device=card)
+    dirs = pms.pixel_directions(model, 1080, 1920, torch.float32,
+                                card).reshape(-1, 3)
+    t = torch.tensor([-0.2, 0.0, 0.0], device=card)
+    lo, hi = cg._static_clamp_bounds(model)
+    eps = cg.default_eps(torch.float32)
+    warm, _, _ = cg.project_points(model, dirs * 1.9 + t, max_iterations=6)
+    x = dirs * 2.0 + t
+    d = (x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)).contiguous()
+    g0 = cg.pixel_to_grid(model, warm).contiguous()
+    n = d.shape[0]
+    (gk, ck), (gp, cp), _, _ = _run_projections(model, d, g0, iters=6,
+                                                blocks=False)
+    vk, vp = ck < 1e4 * eps, cp < 1e4 * eps
+    assert int(vp.sum()) > 0.85 * n
+    assert int((vk != vp).sum()) <= 1e-3 * n
+    sx, sy = cg.pixel_scale_to_grid_scale(model)
+    dg = (gk - gp)[vk & vp].abs()
+    err = torch.maximum(dg[:, 0] / sx, dg[:, 1] / sy).double()
+    print(f"stereo shape: {int((vk != vp).sum())} flips, |dpx| p99.9 "
+          f"{float(torch.quantile(err, 0.999)):.3e}, max {float(err.max()):.3e}")
+    assert float(torch.quantile(err, 0.999)) <= 1e-3
+    assert float(err.max()) <= 5e-2
+    again = cgc.project_grid_coords(model.grid, d, g0, lo, hi, 6, eps)
+    assert torch.equal(again[0], gk) and torch.equal(again[1], ck)
+
+
+def _stereo_inputs(card):
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    model, (left, right), r, t = _stereo_scene(card)
+    h, w = left.shape
+    opts = pms.PatchMatchOptions(min_depth=0.8, max_depth=6.0, seed=3)
+    dirs = pms.pixel_directions(model, h, w, torch.float32, card)
+    inv0 = torch.full((h, w), 0.5, device=card)
+    return left, right, dirs, r, t, model, inv0, opts
+
+
+def test_slanted_cost_on_the_card_matches_plain(card, monkeypatch):
+    """``_slanted_cost`` with the 7×7 window through ``project`` against
+    the same cost with the plain projection: validity flips on at most
+    0.5% of the pixels, costs within 1e-3 elsewhere (the kernel and the
+    plain LM differ by rounding, ~1e-4 px)."""
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    args = _stereo_inputs(card)
+    before = _cuda.launches["project"]
+    evaluate, (n_f, c_f, cost_k, warm_k) = pms._patch_match_setup(*args)
+    assert _cuda.launches["project"] == before + 1
+    monkeypatch.setattr(cgc, "project_grid_coords",
+                        cgc.project_grid_coords_plain)
+    _, (_, _, cost_p, _) = pms._patch_match_setup(*args)
+    fk, fp = torch.isfinite(cost_k), torch.isfinite(cost_p)
+    assert float(fk.float().mean()) > 0.5
+    assert int((fk != fp).sum()) <= 0.005 * fk.numel()
+    both = fk & fp
+    assert float((cost_k - cost_p)[both].abs().max()) <= 1e-3
+
+
+def test_patch_match_round_on_the_card_matches_plain(card, monkeypatch):
+    """One PatchMatch round with the same draws through ``project`` (13
+    launches with the round's set-up) and through the plain projection.
+    The round's accept tests compare candidate costs that can lie within
+    the two projections' rounding (~1e-6) of each other, so a few
+    pixels keep another candidate: the same plane at 95% of the pixels
+    (96.3% measured on the H100), the same finite-cost pixels but for
+    0.5%, and the resulting costs within 1e-3 at 99% of the pixels
+    finite in both."""
+    from camera_calibration_torch.stereo import patch_match as pms
+
+    args = _stereo_inputs(card)
+    opts = args[-1]
+    h, w = args[0].shape
+    gen = torch.Generator(device=card)
+    gen.manual_seed(opts.seed)
+    draws = pms._draws(gen, opts, h, w, args[0])
+
+    def one_round():
+        evaluate, state = pms._patch_match_setup(*args)
+        return pms._patch_match_round(evaluate, args[2], state, *draws, opts)
+
+    before = _cuda.launches["project"]
+    nk, ck, costk, _ = one_round()
+    assert _cuda.launches["project"] == before + 1 + 8 + 2 * opts.mutation_count
+    monkeypatch.setattr(cgc, "project_grid_coords",
+                        cgc.project_grid_coords_plain)
+    np_, cp, costp, _ = one_round()
+    same = ((nk - np_).abs().max(-1).values <= 1e-4) & (
+        (ck - cp).abs() <= 1e-4 * cp.abs().clamp_min(1))
+    fk, fp = torch.isfinite(costk), torch.isfinite(costp)
+    fin = fk & fp
+    close = (costk - costp)[fin].abs() <= 1e-3
+    print(f"round: same plane {float(same.float().mean()):.4f}, finite "
+          f"flips {int((fk != fp).sum())} of {fk.numel()}, costs within "
+          f"1e-3 {float(close.float().mean()):.4f}")
+    assert float(same.float().mean()) >= 0.95
+    assert int((fk != fp).sum()) <= 0.005 * fk.numel()
+    assert float(close.float().mean()) >= 0.99

@@ -27,6 +27,7 @@ from camera_calibration_tpu.ba import dataset as jds
 from camera_calibration_tpu.io import dataset_bin as jbin
 from camera_calibration_tpu.io import state_io as jio
 from test_golden_io import _golden_dataset_bytes
+from torch_threads import one_torch_thread  # noqa: F401
 
 FILES = ("rig_tr_global.yaml", "camera_tr_rig.yaml", "intrinsics0.yaml",
          "points.yaml", "rig_tr_global.yaml.obj", "points.yaml.obj")

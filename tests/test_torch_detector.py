@@ -12,7 +12,7 @@ package, on the CPU in float64.
   ``detect_batch`` returns (as float32, the format's type).
 - Without a card, the entry points raise unless asked for the CPU.
 
-The module runs with one intra-op thread (see ``_one_torch_thread``).
+The module runs with one intra-op thread (``tests/torch_threads.py``).
 """
 
 import filecmp
@@ -29,20 +29,10 @@ from camera_calibration_torch.io import dataset_bin
 from camera_calibration_tpu import cli as jcli
 from camera_calibration_tpu.features import detector as jdet
 from camera_calibration_tpu.features import pattern as jpat
+from torch_threads import one_torch_thread  # noqa: F401
 
 POS_PX = 1e-6
 CPU64 = dict(device="cpu", dtype=torch.float64)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs in
-    several worker processes, and the refinement loops' many small ops
-    slow down when their thread pools oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _board_image(seed, noise, n=12, square_px=26.0, angle=0.04, persp=2e-5):

@@ -26,7 +26,7 @@ port's, and the outputs are compared:
   reference's outputs, and the port's own PDF writer draws the pattern's
   raster oracle.
 
-The module runs with one intra-op thread (see ``_one_torch_thread``).
+The module runs with one intra-op thread (``tests/torch_threads.py``).
 """
 
 import re
@@ -50,21 +50,11 @@ from camera_calibration_tpu.features import refinement as jref
 from camera_calibration_tpu.ops import dlt as jdlt
 from camera_calibration_tpu.ops import interp as jinterp
 from camera_calibration_tpu.ops import linalg as jlinalg
+from torch_threads import one_torch_thread  # noqa: F401
 
 OPS_REL = 1e-12
 POS_PX = 1e-9
 COST_REL = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs in
-    several worker processes, and the refinement loops' many small ops
-    slow down when their thread pools oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -27,7 +27,7 @@ the same inputs in float64:
 - ``fit_noncentral_to_lines`` after one LM iteration of each of its fits
   to 1e-7, and the native ``pattern_intensity`` exactly.
 
-The module runs with one intra-op thread (see ``_one_torch_thread``).
+The module runs with one intra-op thread (``tests/torch_threads.py``).
 """
 
 import functools
@@ -52,20 +52,9 @@ from camera_calibration_tpu.models import fit as jfit
 import test_dense_init as ref_tdi
 import test_relative_pose as ref_trp
 import torch_e2e_init
+from torch_threads import one_torch_thread  # noqa: F401
 
 POSE = dict(rtol=0, atol=1e-9)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs in
-    several worker processes, and the fits' many small parallel ops slow
-    down by an order of magnitude when their thread pools oversubscribe
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -37,6 +37,7 @@ from camera_calibration_torch import config, convert, problems
 from camera_calibration_torch.ba import lm_pcg as T
 from camera_calibration_torch.models import protocol
 from camera_calibration_tpu.ba import lm_pcg as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-9, atol=1e-12)
 STATE_TOL = dict(rtol=1e-9, atol=1e-10)

@@ -63,7 +63,8 @@ NEW_MODULES = ("models/parametric.py", "models/pinhole.py", "ba/gn.py",
                "features/patch_refinement.py", "features/detector.py",
                "cli.py", "init/noncentral_init.py", "io/meshlab.py",
                "report/__init__.py", "report/raster.py",
-               "report/calibration_report.py", "report/fitting_report.py")
+               "report/calibration_report.py", "report/fitting_report.py",
+               "stereo/__init__.py", "stereo/patch_match.py", "io/colmap.py")
 
 
 def test_no_forbidden_imports():

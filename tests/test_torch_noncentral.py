@@ -40,6 +40,7 @@ from camera_calibration_tpu.models import noncentral_generic as jncg
 from camera_calibration_tpu.models import protocol as jprot
 from camera_calibration_tpu.models.base import replace as jreplace
 from camera_calibration_tpu.ops import manifolds as jman
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-9, atol=1e-12)
 STATE_TOL = dict(rtol=1e-9, atol=1e-10)

@@ -23,6 +23,7 @@ from camera_calibration_tpu.ops import losses as jlo
 from camera_calibration_tpu.ops import manifolds as jm
 from camera_calibration_tpu.ops import se3 as js
 from camera_calibration_tpu.ops import segsum as jseg
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 

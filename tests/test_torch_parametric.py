@@ -40,6 +40,7 @@ from camera_calibration_tpu.models import pinhole as jpin
 from camera_calibration_tpu.models import protocol as jproto
 from camera_calibration_tpu.ops import se3 as jse3
 from test_parametric import _opencv_model, _radial_model, _tpf_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 TIGHT = dict(rtol=1e-12, atol=1e-12)
 REL = dict(rtol=1e-9, atol=1e-12)

@@ -28,6 +28,7 @@ from camera_calibration_torch.models import parametric as tpm
 from camera_calibration_tpu.ba import lm_pcg as J
 from camera_calibration_tpu.ba.dataset import split_by_camera, to_grid_layout
 from test_parametric import _opencv_model, _radial_model, _tpf_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-9, atol=1e-12)
 STATE_TOL = dict(rtol=1e-9, atol=1e-10)

@@ -25,7 +25,7 @@ printed and written metrics within 1e-3 px (observed 4.5e-5 px: the
 60-iteration OpenCV fit amplifies last-bit differences, as
 ``tests/test_torch_parametric.py`` found), both under that test's 0.05 px.
 
-The module runs with one intra-op thread (see ``_one_torch_thread``).
+The module runs with one intra-op thread (``tests/torch_threads.py``).
 """
 
 import os
@@ -49,20 +49,10 @@ from camera_calibration_tpu.models import noncentral_generic as jncg
 from camera_calibration_tpu.models import protocol as jprotocol
 from camera_calibration_tpu.report import calibration_report as jrep
 from test_torch_cli import NUMBER, _assert_same_text
+from torch_threads import one_torch_thread  # noqa: F401
 
 PNGS = ("_errors_histogram", "_error_magnitudes", "_error_directions",
         "_grid_point_locations", "_observation_directions")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs in
-    several worker processes, and small parallel ops slow down by an order
-    of magnitude when their thread pools oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _noncentral(state):

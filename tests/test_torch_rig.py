@@ -31,6 +31,7 @@ from camera_calibration_tpu.ba.dataset import ObservationTable, to_grid_layout
 from camera_calibration_tpu.ba.state import BAState, transform_to_camera
 from camera_calibration_tpu.models import central_generic as jcg
 from camera_calibration_tpu.models import protocol as jproto
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-9, atol=1e-12)
 STATE_TOL = dict(rtol=1e-9, atol=1e-10)

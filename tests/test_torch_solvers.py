@@ -35,6 +35,7 @@ from camera_calibration_torch.ba.state import (
 )
 from camera_calibration_tpu.ba import lm_pcg as J
 from camera_calibration_tpu.ba.state import fix_gauge_mask as j_mask
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-9, atol=1e-12)
 STATE_TOL = dict(rtol=1e-9, atol=1e-10)

@@ -24,6 +24,7 @@ from camera_calibration_torch import _cuda
 from camera_calibration_torch.ba import residuals as tres
 from camera_calibration_torch.ba import window_cuda as wc
 from camera_calibration_tpu.ba import residuals as jres
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-12
 
