@@ -133,14 +133,19 @@ def split_by_camera(obs: ObservationTable, segments) -> tuple:
     )
 
 
-def pad_table(obs: ObservationTable, multiple: int) -> ObservationTable:
-    """Pad a table's observation axis to a multiple (invalid rows).
+def pad_table(obs: ObservationTable, multiple: int = 1,
+              count: int | None = None) -> ObservationTable:
+    """Pad a table's observation axis (invalid rows) to a multiple of
+    ``multiple``, or to exactly ``count`` rows when that is given.
 
     Index columns are padded with their last entry (not 0), so a pose-major
     sorted table stays sorted; padded rows are invalid and contribute zeros.
     """
     n = obs.count
-    cap = ((n + multiple - 1) // multiple) * multiple
+    cap = ((n + multiple - 1) // multiple) * multiple if count is None \
+        else count
+    if cap < n:
+        raise ValueError(f"cannot pad {n} rows to {cap}")
     if cap == n:
         return obs
     pad = cap - n

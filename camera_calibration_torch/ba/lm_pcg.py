@@ -28,6 +28,12 @@ CG matvecs read bfloat16 copies of the Jacobian blocks, made once per
 solve (:func:`_cg_cast_blocks`); the gradient, the right-hand side, the
 back-substitution, the preconditioner and the accept test keep the
 float32 blocks.
+
+Tables sharded over a process group (``parallel/sharding.py``) hold this
+rank's observations; every sum over observations is then summed across
+the ranks (:func:`_reduce`): the tangent of each JᵀW·s, the block
+diagonal, the paired and full costs, and the normal equations of
+:func:`schur_direct_solve`.  Plain tables call no collective.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from camera_calibration_torch.models import protocol
 from camera_calibration_torch.models.central_generic import CentralGenericModel
 from camera_calibration_torch.ops import linalg, manifolds
 from camera_calibration_torch.ops.segsum import onehot_segment_sum
+from camera_calibration_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +243,21 @@ def _masked(tangent: BATangent, mask: BATangent) -> BATangent:
     return tangent.map(lambda t, m: t * m, mask)
 
 
+def _reduce(data, *tensors):
+    """The tensors summed over the ranks that hold shards of ``data`` (one
+    all-reduce); as they are for plain tables.  Returns a list."""
+    shard = sharding.shard_of(data)
+    if shard is None:
+        return list(tensors)
+    return sharding.all_reduce_sum(shard, tensors)
+
+
+def _reduce_tangent(data, t: BATangent) -> BATangent:
+    if sharding.shard_of(data) is None:
+        return t
+    return t.unravel(_reduce(data, t.ravel())[0])
+
+
 # ------------------------------ linear solver ------------------------------
 
 
@@ -398,7 +420,8 @@ def _apply_jt_subset(data, blocks, s_list, state: BAState, *, rig=True,
             pts_t = pts_t + _jtw_point(seg, b.j_point, ws, pts_t.shape[0])
         if intr:
             intr_t[ci] = intr_t[ci] + res.intr_apply_jtw(b.intr, ws, intr_t[ci])
-    return BATangent(rig=rig_t, cam=cam_t, points=pts_t, intr=tuple(intr_t))
+    return _reduce_tangent(
+        data, BATangent(rig=rig_t, cam=cam_t, points=pts_t, intr=tuple(intr_t)))
 
 
 def apply_j(data, blocks, tangent: BATangent):
@@ -438,6 +461,7 @@ def jtwj_block_diag(data, blocks, state: BAState):
         gh, gw = model.grid_height, model.grid_width
         intr.append(window_cuda.window_block_diag(
             bi.j_win, bi.base_xy, w, gh, gw, bi.k_tangent))
+    rig, cam, pts, *intr = _reduce(data, rig, cam, pts, *intr)
     return rig, cam, pts, tuple(intr)
 
 
@@ -447,14 +471,31 @@ def _damped_inv(a, lam):
         a + lam * torch.eye(k, dtype=a.dtype, device=a.device))
 
 
-def make_block_preconditioner(block_diag, lam, state):
-    """Invert damped diagonal blocks; returns an apply(r)->z function."""
+def make_block_preconditioner(block_diag, lam, state, shard=None):
+    """Invert damped diagonal blocks; returns an apply(r)->z function.
+
+    With a ``shard`` whose ``grid_blocks`` is set
+    (``parallel.sharding.shard_grid_blocks``) each rank inverts and applies
+    the per-knot blocks of its band of knot rows, and the bands are
+    all-gathered."""
     rig_inv, cam_inv, pts_inv = (_damped_inv(x, lam) for x in block_diag[:3])
-    intr_inv = [_damped_inv(x, lam) for x in block_diag[3]]
+    banded = shard is not None and shard.grid_blocks
+
+    def band(gh):
+        return sharding.knot_band(gh, shard) if banded else None
+
+    intr_inv = []
+    for x in block_diag[3]:
+        b = band(x.shape[0]) if x.dim() == 4 else None
+        intr_inv.append(_damped_inv(x if b is None else x[b[0]:b[1]], lam))
 
     def apply_intr(inv, ri):
         if inv.dim() == 4:  # (gh, gw, K, K) per-knot blocks
-            return torch.einsum("hwjk,hwk->hwj", inv, ri)
+            b = band(ri.shape[0])
+            if b is None:
+                return torch.einsum("hwjk,hwk->hwj", inv, ri)
+            z = torch.einsum("hwjk,hwk->hwj", inv, ri[b[0]:b[1]])
+            return sharding.all_gather_rows(shard, z, b[2])[:ri.shape[0]]
         return inv @ ri  # one (P, P) parametric block
 
     def apply(r: BATangent) -> BATangent:
@@ -524,7 +565,7 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     precond = make_block_preconditioner(
         (torch.zeros_like(rig_b) if not el_points else rig_b, cam_b,
          torch.zeros_like(pts_b) if el_points else pts_b, intr_b),
-        lam, state,
+        lam, state, shard=sharding.shard_of(data),
     )
     mask_keep = zero_elim(mask)
     mask_keep_flat = mask_keep.ravel()
@@ -586,6 +627,21 @@ def _flat_offsets(state):
     return offsets, off
 
 
+def _grid_band(seg, state, shard):
+    """(first imageset, M, P) of a grid-layout table: the whole grid of a
+    plain table, or a shard's band of whole imagesets (rows m-major from
+    its first imageset); None when the table is not in grid layout."""
+    if shard is None:
+        gs = _valid_grid_shape(seg, state)
+        return None if gs is None else (0,) + tuple(gs)
+    gs = seg.grid_shape
+    if (gs is None or gs[1] != state.points.shape[0]
+            or gs[0] * gs[1] != seg.count):
+        return None
+    m0 = int(seg.imageset[0]) if seg.count else 0
+    return (m0,) + tuple(gs)
+
+
 def _dense_intr_j(bi, gh, gw, k):
     """The per-observation dense intrinsics Jacobian (n, 2, gh·gw·k) of the
     4×4-window form (reference package ``lm_pcg.py:786-807``), by one index
@@ -612,10 +668,10 @@ def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
 
     eliminate="poses" reduces onto [cam, points, intrinsics];
     eliminate="points" onto [poses, cam, intrinsics].  Needs grid-layout
-    tables; memory grows with the square of the reduced dimension.  A
-    reduced system that is not positive definite gives a NaN step (which
-    the LM step rejects), as the reference's Cholesky does.  Returns
-    (δ, 0).
+    tables (on a shard, a band of imagesets); memory grows with the square
+    of the reduced dimension.  A reduced system that is not positive
+    definite gives a NaN step (which the LM step rejects), as the
+    reference's Cholesky does.  Returns (δ, 0).
     """
     rig_b, cam_b, pts_b, _ = block_diag
     dtype, dev = state.points.dtype, state.points.device
@@ -634,6 +690,9 @@ def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
 
     h = torch.zeros((f_dim, f_dim), dtype=dtype, device=dev)
     c_mat = torch.zeros((n_el, f_dim, k_el), dtype=dtype, device=dev)
+    # On shards the observation sums of h and c_mat are all-reduced below;
+    # the (already summed) diagonal blocks enter on rank 0 only.
+    shard = sharding.shard_of(data)
 
     def add_sym(r0, rn, c0, cn, blk):
         """Add a cross block and its transpose."""
@@ -648,20 +707,21 @@ def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
         h[idx[:, :, None], idx[:, None, :]] += blk
 
     # Within-group diagonal blocks of the kept variables.
-    if poses:
-        add_block_diag(pt_off, pts_b)
-    else:
-        add_block_diag(rig_off, rig_b)
-    add_block_diag(cam_off, cam_b)
+    if shard is None or shard.rank == 0:
+        if poses:
+            add_block_diag(pt_off, pts_b)
+        else:
+            add_block_diag(rig_off, rig_b)
+        add_block_diag(cam_off, cam_b)
 
     for ci, seg in enumerate(data):
-        gs = _valid_grid_shape(seg, state)
-        if gs is None:
+        band = _grid_band(seg, state, shard)
+        if band is None:
             raise ValueError(
                 "schur_direct requires grid-layout observation tables "
                 "(options.table_layout='auto' on calibration-shaped "
                 "problems); use the PCG solver modes otherwise")
-        mm, pp = gs
+        m0, mm, pp = band
         b = blocks[ci]
         w = b.weight.reshape(mm, pp, 1, 1)
         jr = b.j_rig.reshape(mm, pp, 2, 6)
@@ -688,24 +748,28 @@ def schur_direct_solve(data, blocks, state, grad, block_diag, lam, mask,
                     h_cp.permute(1, 0, 2).reshape(6, 3 * pp))
             # Elimination cross blocks B = H_keep,pose(m).
             jrw = jr * w
-            c_mat[:, pt_off:pt_off + 3 * p_n, :] += torch.einsum(
+            c_band = c_mat[m0:m0 + mm]
+            c_band[:, pt_off:pt_off + 3 * p_n, :] += torch.einsum(
                 "mpia,mpib->mpab", jp, jrw).reshape(mm, 3 * pp, 6)
-            c_mat[:, co:co + 6, :] += torch.einsum("mpia,mpib->mab", jc, jrw)
-            c_mat[:, i_off:i_off + i_size, :] += torch.einsum(
+            c_band[:, co:co + 6, :] += torch.einsum("mpia,mpib->mab", jc, jrw)
+            c_band[:, i_off:i_off + i_size, :] += torch.einsum(
                 "mpig,mpib->mgb", jd, jrw)
         else:
             jrw = jr * w
+            r0 = rig_off + 6 * m0
             h_ri = torch.einsum("mpia,mpig->mag", jrw, jd)
-            add_sym(rig_off, 6 * m_n, i_off, i_size, h_ri.reshape(6 * mm, i_size))
+            add_sym(r0, 6 * mm, i_off, i_size, h_ri.reshape(6 * mm, i_size))
             h_rc = torch.einsum("mpia,mpib->mab", jrw, jc)
-            add_sym(rig_off, 6 * m_n, co, 6, h_rc.reshape(6 * mm, 6))
+            add_sym(r0, 6 * mm, co, 6, h_rc.reshape(6 * mm, 6))
             # Elimination cross blocks B = H_keep,point(p).
             jpw = jp * w
-            c_mat[:, rig_off:rig_off + 6 * m_n, :] += torch.einsum(
+            c_mat[:, r0:r0 + 6 * mm, :] += torch.einsum(
                 "mpia,mpib->pmab", jr, jpw).reshape(pp, 6 * mm, 3)
             c_mat[:, co:co + 6, :] += torch.einsum("mpia,mpib->pab", jc, jpw)
             c_mat[:, i_off:i_off + i_size, :] += torch.einsum(
                 "mpig,mpib->pgb", jd, jpw)
+
+    h, c_mat = _reduce(data, h, c_mat)
 
     # Schur complement S = H_keep − B D⁻¹ Bᵀ.
     cd = torch.einsum("eFa,eab->eFb", c_mat, d_inv)
@@ -745,7 +809,8 @@ def pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     :func:`_cg_cast_blocks`.  Returns (δ, CG iterations).
     """
     mask_flat = mask.ravel()
-    precond = make_block_preconditioner(block_diag, lam, state)
+    precond = make_block_preconditioner(block_diag, lam, state,
+                                        shard=sharding.shard_of(data))
     blocks_mv = _cg_cast_blocks(blocks, options)
 
     def matvec_flat(vf):
@@ -831,8 +896,10 @@ def _solve_step(data, blocks, state, lam, options, x0=None):
     return delta, pcg_iters, lam, grad
 
 
-def _paired_sums(old_costs, old_valids, new_costs, new_valids, dtype, device):
-    """Costs on the observations valid in both states, and full costs."""
+def _paired_sums(old_costs, old_valids, new_costs, new_valids, dtype, device,
+                 data):
+    """Costs on the observations valid in both states, and full costs
+    (summed over the ranks when ``data`` is sharded)."""
     zero = torch.zeros((), dtype=dtype, device=device)
     old_sum, new_sum, full, new_full = zero, zero, zero, zero
     for oc, ov, nc, nv in zip(old_costs, old_valids, new_costs, new_valids):
@@ -841,7 +908,7 @@ def _paired_sums(old_costs, old_valids, new_costs, new_valids, dtype, device):
         new_sum = new_sum + torch.sum(torch.where(joint, nc, 0.0))
         full = full + torch.sum(oc)
         new_full = new_full + torch.sum(nc)
-    return old_sum, new_sum, full, new_full
+    return tuple(_reduce(data, old_sum, new_sum, full, new_full))
 
 
 def lm_step(state, warm_xy, lam, data, options: BAOptions, blocks=None,
@@ -875,7 +942,7 @@ def lm_step(state, warm_xy, lam, data, options: BAOptions, blocks=None,
     old_sum, new_sum, full_cost, new_full_cost = _paired_sums(
         [b.cost for b in blocks], [b.valid for b in blocks],
         [b.cost for b in test_blocks], [b.valid for b in test_blocks],
-        state.points.dtype, state.points.device)
+        state.points.dtype, state.points.device, data)
     accept = bool(new_sum < old_sum)
     if accept:
         state, blocks, warm = test_state, test_blocks, warm2
@@ -905,7 +972,8 @@ def _lm_step_two_pass(state, warm_xy, lam, data, options: BAOptions):
     test_costs, test_valids, warm2 = total_cost(data, test_state, warm1, options)
     old_sum, new_sum, full_cost, new_full_cost = _paired_sums(
         [b.cost for b in blocks], [b.valid for b in blocks],
-        test_costs, test_valids, state.points.dtype, state.points.device)
+        test_costs, test_valids, state.points.dtype, state.points.device,
+        data)
     accept = bool(new_sum < old_sum)
     if accept:
         state, warm = test_state, warm2
@@ -952,7 +1020,10 @@ def make_lm_scan(options: BAOptions, n_steps: int):
 
 def maybe_grid_layout(data, state: BAState, options: BAOptions):
     """Re-lay per-camera tables into (M, P) grid layout when the fill ratio
-    justifies it (``options.table_layout='auto'``)."""
+    justifies it (``options.table_layout='auto'``).  Sharded tables are
+    kept as they are: their caller lays them out before sharding."""
+    if sharding.shard_of(data) is not None:
+        return data
     if options.table_layout == "flat":
         return tuple(data)
     m = state.rig_q_global.shape[0]
@@ -1037,9 +1108,10 @@ def optimize(
         if not isinstance(obs, ObservationTable):
             obs = convert.observation_table(obs, device=dev)
         data = split_by_camera(obs, segments)
-    data = tuple(seg if isinstance(seg, ObservationTable)
-                 else convert.observation_table(seg, device=dev)
-                 for seg in data)
+    if sharding.shard_of(data) is None:
+        data = tuple(seg if isinstance(seg, ObservationTable)
+                     else convert.observation_table(seg, device=dev)
+                     for seg in data)
     was_auto = options.solver == "auto"
     options = resolve_solver(options, state)
     data = maybe_grid_layout(data, state, options)
@@ -1147,14 +1219,15 @@ def verify_cost(state, data, options: BAOptions, seed: int = 0):
     warm = tuple(seg.pixel for seg in data)
 
     def cost(s):
-        return sum(torch.sum(c) for c in total_cost(data, s, warm, options)[0])
+        return _reduce(data, sum(torch.sum(c) for c in
+                                 total_cost(data, s, warm, options)[0]))[0]
 
     c1 = float(cost(state))
     c2 = float(cost(state))
     assert c1 == c2, f"nondeterministic cost: {c1} vs {c2}"
 
     blocks, _ = compute_blocks(data, state, warm, options)
-    c_blocks = float(sum(torch.sum(b.cost) for b in blocks))
+    c_blocks = float(_reduce(data, sum(torch.sum(b.cost) for b in blocks))[0])
     rel_cost = abs(c_blocks - c1) / max(abs(c1), 1e-30)
     assert rel_cost < 1e-4, (
         f"block-pass cost {c_blocks} vs cost-pass {c1} (rel {rel_cost})")
@@ -1181,7 +1254,7 @@ def verify_cost(state, data, options: BAOptions, seed: int = 0):
             r = px - seg.pixel
             total = total + 0.5 * torch.sum(
                 blocks[ci].weight * torch.sum(r * r, dim=-1))
-        return total
+        return _reduce(data, total)[0]
 
     eps = 1e-5 if state.points.dtype == torch.float64 else 3e-3
     c_plus = float(weighted_cost(retract(state, v.map(lambda x: eps * x))))

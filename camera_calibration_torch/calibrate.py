@@ -549,6 +549,7 @@ def calibrate(
     log=print,
     state_output_path=None,
     image_used=None,
+    visualizer=None,
 ):
     """Full calibration from an initialized state.
 
@@ -559,10 +560,26 @@ def calibrate(
 
     state_output_path: if set, the BA state is checkpointed there after
     every accepted LM iteration (reference: calibration.cc:242-245) so a
-    crashed run can resume.  (The reference package's ``visualizer`` hook
-    is not here: the port has no UI.)
+    crashed run can resume.
+
+    visualizer: optional ui.calibration_visualizer.CalibrationVisualizer;
+    its per-stage hooks are invoked as the pipeline progresses, mirroring
+    how the reference's Calibrate() drives its CalibrationWindow after
+    each BA iteration (calibration.cc:256-290).  The hooks only read the
+    state and the tables: the result is the same with or without one.
     """
     report = {"pyramid": [], "outliers_removed": 0, "scale_factor": 1.0}
+
+    vis_callback = None
+    if visualizer is not None:
+        # closes over ``data``, which is rebound after outlier removal;
+        # during the float64 CPU polish the tables are read in the
+        # polish's type on its device
+        def vis_callback(entry, st):
+            if entry["accepted"]:
+                visualizer.update_reprojection_errors(
+                    st, cast_floating(data, st.points.dtype, st.points.device),
+                    iteration=entry["iteration"])
 
     state_saver = None
     if state_output_path is not None and feature_id_to_point_index is not None:
@@ -601,11 +618,11 @@ def calibrate(
         log(f"[calibrate] pyramid level {level}")
         state, info1 = run_ba(
             state, data, options.pyramid_iterations[0], 1e-4, options,
-            state_saver=state_saver,
+            callback=vis_callback, state_saver=state_saver,
         )
         state, info2 = run_ba(
             state, data, options.pyramid_iterations[1], 1.0, options,
-            state_saver=state_saver,
+            callback=vis_callback, state_saver=state_saver,
         )
         report["pyramid"].append(
             {"level": level, "cost": info2["final_cost"] or info1["final_cost"]}
@@ -625,15 +642,17 @@ def calibrate(
             else options.pyramid_iterations[0]
         )
         state, _ = run_ba(state, data, iters, 1e-4, options,
-                          state_saver=state_saver)
+                          callback=vis_callback, state_saver=state_saver)
         data, removed = delete_outlier_features(
             state, data, options.outlier_removal_factor
         )
         report["outliers_removed"] = removed
         log(f"[calibrate] removed {removed} outlier observations")
+        if visualizer is not None:
+            visualizer.update_removed_outliers(state, data, removed)
 
     state, info = run_ba(state, data, options.final_iterations, 1e-4, options,
-                         state_saver=state_saver)
+                         callback=vis_callback, state_saver=state_saver)
     report["final_cost"] = info["final_cost"]
     solver_report = info.get("report")
     if solver_report is not None:
@@ -653,7 +672,8 @@ def calibrate(
     # report's errors then run on the float64 CPU state.
     if options.polish_iterations > 0 and state.points.dtype == torch.float32:
         state, data, pinfo = polish_float64(
-            state, data, options, state_saver=state_saver, log=log)
+            state, data, options, callback=vis_callback,
+            state_saver=state_saver, log=log)
         if pinfo["final_cost"] is not None:
             report["final_cost_f32"] = report["final_cost"]
             report["polish_cost"] = pinfo["final_cost"]
@@ -675,6 +695,12 @@ def calibrate(
         )
         report["scale_factor"] = factor
         log(f"[calibrate] metric scale factor {factor:.6f}")
+
+    if visualizer is not None:
+        visualizer.update_error_histogram(state, data)
+        visualizer.update_error_directions(state, data)
+        for ci, m in enumerate(state.intrinsics):
+            visualizer.update_observation_directions(ci, m)
 
     errs = observation_reprojection_errors(state, data)
     all_err = np.concatenate([_np(e) for e in errs])

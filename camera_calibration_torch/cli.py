@@ -4,6 +4,7 @@ The counterpart of the reference package's ``cli.py``, flag for flag, for
 the subcommands whose modules are ported:
 
   calibrate                full pipeline: [detect] -> dense init -> pyramid BA
+  record                   live capture: cameras/videos/directories -> dataset
   report                   calibration report for a saved state
   compare                  direction comparison of two saved states
   compare-reconstructions  Umeyama-aligned pose and intrinsics comparison
@@ -32,9 +33,10 @@ on the card (the projection kernel), float64 on the CPU.
 The state-reading tools (compare, compare-reconstructions, fit-parametric,
 localization-accuracy, visualize-calibration) load the states in float64,
 as the reference does.  Reports, legends and visualizations are rasters
-written with OpenCV, not matplotlib.
-Not here yet: ``record`` and ``calibrate --live_directory`` (they need
-the UI and live image input, which the port has not got).
+written with OpenCV, not matplotlib, and so are the per-stage images of
+``calibrate --live_directory`` (the headless CalibrationWindow).
+``record`` detects on ``--device`` frame by frame and keeps its host work
+(coverage maps, recording) in NumPy.
 
 For example, ``python -m camera_calibration_torch.cli calibrate
 --dataset_files dataset.bin --output_directory out --report``.
@@ -59,9 +61,12 @@ def _load_gray(path):
     return img
 
 
-def detect_dataset(image_dirs, pattern_files, device=None, dtype=None):
+def detect_dataset(image_dirs, pattern_files, device=None, dtype=None,
+                   visualizer=None):
     """Run the feature detector over image directories (one per camera,
-    the i-th image of each forming imageset i) -> Dataset."""
+    the i-th image of each forming imageset i) -> Dataset.  With a
+    ``visualizer`` (ui.calibration_visualizer) each image's detections are
+    drawn."""
     import torch
 
     from camera_calibration_torch.ba.dataset import (Dataset, Imageset,
@@ -93,6 +98,8 @@ def detect_dataset(image_dirs, pattern_files, device=None, dtype=None):
         for si, (features, _) in enumerate(det.detect_batch(imgs)):
             print(f"[detect] camera {ci} image {si}: {len(features)} "
                   f"features ({os.path.basename(per_cam_files[ci][si])})")
+            if visualizer is not None:
+                visualizer.update_feature_detection(ci, imgs[si], features)
             feats.append(features)
         per_cam_features.append(feats)
     imagesets = [
@@ -211,10 +218,33 @@ def render_views(spec, num_images, width, height, min_z, max_z, seed):
         yield i, k_mat @ np.c_[r[:, :2] * cell, t], rng
 
 
+def _render_view(spec, h_pp, size, rng, degradations, path):
+    """Render, degrade and write one view of ``render-synthetic``."""
+    import cv2
+    import numpy as np
+
+    from camera_calibration_torch.features import pattern as pat
+    from camera_calibration_torch.features.degrade import degrade
+
+    img = pat.render_pattern(
+        spec, np.linalg.inv(h_pp), size, supersample=3,
+        tag_renderer=pat.make_tag_renderer(spec) if spec.tags else None)
+    img = degrade(img, rng, **degradations)
+    cv2.imwrite(path, (img * 255).astype(np.uint8))
+
+
 def cmd_render_synthetic(args):
     """Render a synthetic dataset of pattern views from a pinhole camera
-    (the reference's tools/render_synthetic_dataset.cc)."""
-    import cv2
+    (the reference's tools/render_synthetic_dataset.cc).
+
+    The views render in one thread per available core (NumPy and OpenCV
+    release the GIL).  Each view's degradations draw from one generator
+    in view order, so for a thread the parent hands over a copy of the
+    generator and advances its own past the view's draws by degrading a
+    blank image (see :func:`degrade`): the files are the same bytes as
+    in one thread."""
+    import copy
+
     import numpy as np
 
     from camera_calibration_torch.features import pattern as pat
@@ -223,19 +253,31 @@ def cmd_render_synthetic(args):
     spec = pat.load_pattern_yaml(args.pattern_file)
     w, h = args.width, args.height
     os.makedirs(args.output_directory, exist_ok=True)
-    renderer = pat.make_tag_renderer(spec) if spec.tags else None
-    for i, h_pp, rng in render_views(spec, args.num_images, w, h, args.min_z,
-                                     args.max_z, args.seed):
-        img = pat.render_pattern(spec, np.linalg.inv(h_pp), (w, h),
-                                 supersample=3, tag_renderer=renderer)
-        img = degrade(img, rng, vignetting=args.vignetting,
-                      defocus_sigma=args.defocus_sigma,
-                      jpeg_quality=args.jpeg_quality,
-                      exposure_drift=args.exposure_drift, noise=args.noise)
-        cv2.imwrite(
-            os.path.join(args.output_directory, f"synthetic_{i:04d}.png"),
-            (img * 255).astype(np.uint8),
-        )
+    degradations = dict(vignetting=args.vignetting,
+                        defocus_sigma=args.defocus_sigma,
+                        jpeg_quality=args.jpeg_quality,
+                        exposure_drift=args.exposure_drift, noise=args.noise)
+    views = render_views(spec, args.num_images, w, h, args.min_z, args.max_z,
+                         args.seed)
+    workers = min(len(os.sched_getaffinity(0)), args.num_images)
+    if workers <= 1:
+        for i, h_pp, rng in views:
+            _render_view(spec, h_pp, (w, h), rng, degradations,
+                         os.path.join(args.output_directory,
+                                      f"synthetic_{i:04d}.png"))
+    else:
+        import concurrent.futures
+
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            pending = []
+            for i, h_pp, rng in views:
+                pending.append(pool.submit(
+                    _render_view, spec, h_pp, (w, h), copy.deepcopy(rng),
+                    degradations, os.path.join(args.output_directory,
+                                               f"synthetic_{i:04d}.png")))
+                degrade(np.zeros((h, w)), rng, **degradations)
+            for done in pending:
+                done.result()
     print(f"rendered {args.num_images} images to {args.output_directory}")
     return 0
 
@@ -323,6 +365,13 @@ def cmd_calibrate(args):
     dtype = _dtype(args.dtype)
     polish_iterations = args.polish_iterations if args.dtype == "mixed" else 0
 
+    visualizer = None
+    if args.live_directory:
+        from camera_calibration_torch.ui.calibration_visualizer import (
+            CalibrationVisualizer)
+
+        visualizer = CalibrationVisualizer(args.live_directory)
+
     # 1. dataset: files merged into one joint dataset, or detection
     if args.dataset_files:
         dataset = dataset_bin.load_datasets(args.dataset_files)
@@ -338,7 +387,8 @@ def cmd_calibrate(args):
             return 1
         dataset = detect_dataset(args.image_directories.split(","),
                                  args.pattern_files.split(","),
-                                 device=device, dtype=dtype)
+                                 device=device, dtype=dtype,
+                                 visualizer=visualizer)
         os.makedirs(args.output_directory, exist_ok=True)
         dataset_bin.save_dataset(
             os.path.join(args.output_directory, "dataset.bin"), dataset)
@@ -373,7 +423,8 @@ def cmd_calibrate(args):
                                             polish_iterations),
             known_geometries=dataset.known_geometries,
             feature_id_to_point_index=fid_to_idx,
-            state_output_path=state_path, image_used=used)
+            state_output_path=state_path, image_used=used,
+            visualizer=visualizer)
         print("[calibrate] report:", {
             k: v for k, v in rep.items() if not isinstance(v, list)})
         state_io.save_ba_state(state_path, state, used, fid_to_idx)
@@ -389,6 +440,11 @@ def cmd_calibrate(args):
                                     args.dense_initialization_base_path)
     if results is None:
         return 1
+    if visualizer is not None:
+        for ci, res in enumerate(results):
+            if hasattr(res, "observation_directions"):
+                dirs, valid = res.observation_directions()
+                visualizer.update_initialization(ci, dirs, valid)
 
     # 3. the initial state at the coarsest pyramid resolution
     full_res = cal.compute_grid_resolution(
@@ -404,7 +460,8 @@ def cmd_calibrate(args):
         state, data, _calibrate_options(args, n_pyramid, polish_iterations),
         known_geometries=dataset.known_geometries,
         feature_id_to_point_index=fid_to_idx,
-        state_output_path=state_path, image_used=image_used)
+        state_output_path=state_path, image_used=image_used,
+        visualizer=visualizer)
     print("[calibrate] report:", {
         k: v for k, v in rep.items() if not isinstance(v, list)})
     state_io.save_ba_state(state_path, state, image_used, fid_to_idx)
@@ -419,6 +476,98 @@ def cmd_calibrate(args):
             print(f"[report] camera {ci}: median "
                   f"{m['reprojection_error_median']:.4f} px, avg "
                   f"{m['reprojection_error_average']:.4f} px")
+    return 0
+
+
+def cmd_record(args):
+    """Live capture: camera/video/directory inputs -> detection -> dataset.
+
+    The headless replacement for the reference's live-capture GUI mode
+    (reference: main.cc:487-600 live bootstrap + ui/live_image_consumer.cc):
+    frames stream from the inputs, features are detected live on
+    ``--device`` (default: the card), imagesets with detections accumulate
+    into a dataset.bin, images are optionally recorded, and per-camera
+    detection-coverage PNGs give the operator feedback on which image
+    regions still need views.
+    """
+    from camera_calibration_torch.ba.dataset import Dataset, KnownGeometry
+    from camera_calibration_torch.config import default_device
+    from camera_calibration_torch.features import detector as fdet
+    from camera_calibration_torch.features import pattern as pat
+    from camera_calibration_torch.io import dataset_bin
+    from camera_calibration_torch.io.image_input import create_image_input
+    from camera_calibration_torch.ui.live_capture import (
+        LiveCaptureOptions, LiveImageConsumer, run_live_capture)
+
+    patterns = [pat.load_pattern_yaml(p) for p in args.pattern_files.split(",")]
+    # an explicit device: with --show_pattern the detector runs on a worker
+    # thread, where nothing may depend on a thread's current device
+    det = fdet.FeatureDetector(patterns, device=default_device(args.device))
+
+    image_input = create_image_input(args.inputs)
+    n_cam = image_input.num_cameras
+    dataset = Dataset(num_cameras=n_cam, image_sizes=[])
+    for pi, spec in enumerate(patterns):
+        dataset.known_geometries.append(KnownGeometry(
+            cell_length_in_meters=spec.square_length_in_meters,
+            feature_id_to_position=dict(det.corner_maps[pi])))
+
+    os.makedirs(args.output_directory, exist_ok=True)
+    record_dirs = [os.path.join(args.output_directory, f"images_camera{ci}")
+                   for ci in range(n_cam)]
+    options = LiveCaptureOptions(
+        live_detection=not args.no_live_detection,
+        record_images=args.record_images,
+        record_with_detections_only=not args.record_all_images,
+        capture_interval=args.capture_interval,
+        max_imagesets=args.max_imagesets,
+        visualization_directory=args.output_directory,
+    )
+    consumer = LiveImageConsumer(dataset, det, options,
+                                 record_directories=record_dirs)
+
+    # optional fullscreen on-screen pattern for screen-based calibration
+    # (the reference's PatternDisplay, ui/pattern_display.cc).  HighGUI
+    # is main-thread-only on macOS and flaky off-main on some Qt builds,
+    # so the DISPLAY stays on this thread and the capture loop moves to a
+    # worker; a shared Event lets either side end the other (quit key
+    # stops capture, capture exhaustion closes the window).
+    display = None
+    if args.show_pattern:
+        from camera_calibration_torch.ui.pattern_display import PatternDisplay
+
+        if not PatternDisplay.available():
+            print("[record] --show_pattern: no display available; skipping")
+        else:
+            display = PatternDisplay(patterns[0])
+
+    with image_input:
+        if display is not None:
+            import threading
+
+            stop = threading.Event()
+            result = {"kept": 0}
+
+            def _capture():
+                try:
+                    result["kept"] = run_live_capture(
+                        image_input, consumer, stop_event=stop)
+                finally:
+                    stop.set()
+
+            worker = threading.Thread(target=_capture, daemon=True)
+            worker.start()
+            display.run(stop_event=stop)
+            worker.join()
+            kept = result["kept"]
+        else:
+            kept = run_live_capture(image_input, consumer)
+
+    out = os.path.join(args.output_directory, "dataset.bin")
+    dataset_bin.save_dataset(out, dataset)
+    n_feat = sum(len(f) for s in dataset.imagesets for f in s.features)
+    print(f"recorded {kept} imagesets ({n_feat} features, "
+          f"{consumer.num_recorded} image sets written) -> {out}")
     return 0
 
 
@@ -1189,11 +1338,7 @@ def build_parser():
         p.add_argument("--device", default=None,
                        help="device to compute on (default: the card)")
 
-    p = sub.add_parser(
-        "calibrate", help="full calibration pipeline",
-        description="Full calibration pipeline.  The reference's "
-                    "--live_directory is not here: it needs the UI, which "
-                    "the port has not got yet.")
+    p = sub.add_parser("calibrate", help="full calibration pipeline")
     p.add_argument("--image_directories", help="comma-separated, one per camera")
     p.add_argument("--pattern_files", help="comma-separated pattern YAMLs")
     p.add_argument("--dataset_files", help="existing dataset.bin")
@@ -1256,8 +1401,38 @@ def build_parser():
     p.add_argument(
         "--localize_only", action="store_true",
         help="freeze intrinsics and pattern points; optimize poses only")
+    p.add_argument(
+        "--live_directory",
+        help="write per-stage visualization PNGs here as calibration "
+             "progresses (the headless CalibrationWindow)")
     device_flag(p)
     p.set_defaults(func=cmd_calibrate)
+
+    p = sub.add_parser(
+        "record",
+        help="live capture from cameras/videos/directories -> dataset.bin")
+    p.add_argument(
+        "--inputs", required=True,
+        help="comma-separated per-camera sources: v4l2:<index>, "
+             "video:<path>, or dir:<path>")
+    p.add_argument("--pattern_files", required=True)
+    p.add_argument("--output_directory", required=True)
+    p.add_argument("--record_images", action="store_true",
+                   help="write captured images to per-camera directories")
+    p.add_argument("--record_all_images", action="store_true",
+                   help="record imagesets even without detections")
+    p.add_argument("--no_live_detection", action="store_true",
+                   help="record only; skip per-frame feature detection")
+    p.add_argument("--capture_interval", type=float, default=0.0,
+                   help="minimum seconds between processed imagesets")
+    p.add_argument("--max_imagesets", type=int, default=None)
+    p.add_argument("--show_pattern", action="store_true",
+                   help="show the pattern fullscreen on the local display "
+                        "for screen-based calibration (reference "
+                        "ui/pattern_display.cc); skipped when no display "
+                        "is available")
+    device_flag(p)
+    p.set_defaults(func=cmd_record)
 
     p = sub.add_parser("report", help="report for a saved state")
     p.add_argument("--state_directory", required=True)

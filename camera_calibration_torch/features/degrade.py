@@ -64,7 +64,12 @@ def degrade(
     noise: float = 0.0,
 ) -> np.ndarray:
     """Apply the degradation stack in physical order: optics (defocus,
-    vignetting) -> exposure -> sensor noise -> compression."""
+    vignetting) -> exposure -> sensor noise -> compression.
+
+    What it draws from ``rng`` depends on the image's shape and the
+    options only, never on its pixels: ``render-synthetic`` relies on
+    that to advance a view's generator by degrading a blank image while
+    the view itself renders in another thread."""
     img = apply_defocus(img, defocus_sigma)
     img = apply_vignetting(img, vignetting)
     if exposure_drift > 0:

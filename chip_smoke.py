@@ -91,7 +91,8 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    points: ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with
    its central tag), render-synthetic (30 seeded 1920×1080 views by a
    pinhole camera with fx = 0.85·1920, 0.6–0.9 m away, noise 0.01, defocus
-   σ 0.8 px) and extract-features (detection on the card).  It requires
+   σ 0.8 px, one thread per core) and extract-features (detection on the
+   card).  It requires
    every view to detect at least 70% of the corners its true pose puts
    inside the image, the detected corners' median distance to the
    rendered truth under 0.1 px, the first refinement batch within 1e-3 px
@@ -165,10 +166,29 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    plane's (median distance under 0.04 m); ``visualize-calibration`` of
    [9a]'s state and of the refined COLMAP model.  Every file must be
    written;
-12. prints one JSON line listing every kernel (with its launches per
-   pipeline grid of [7], of [9a], for the K = 5 window rows of [9b], and
-   for ``project`` of each [10] run), the ``nvidia-smi`` line of the
-   card, and last ``{"ok": true, "device": {...}}``.
+12. drives live input, the visualizer and sharding: [12a] ``cli.main
+   record`` of [8]'s 30 views from a ``dir:`` input (detection on the
+   card, one frame at a time, ``--record_images``): every view kept with
+   the feature ids of [8]'s extract-features dataset, the positions
+   within the RECORD_* bars, 30 recorded images and the coverage map, the
+   host seconds per frame (reading, detection, bookkeeping); [12b] the live
+   frame rate of 24 rendered 640×480 views of a 12×12 board through
+   ``run_live_capture`` (as ``benchmarks/live_fps.py`` measures the
+   reference package's, frame 0 excluded); [12c] ``cli.main calibrate
+   --dataset_files <[12a]'s dataset.bin>`` with the defaults, without and
+   then with ``--live_directory`` (the counts set to 0 just before the
+   second): the calibration bar of [9a], every hook image, the final state
+   bit for bit equal to the run without the visualizer, the hooks' host
+   seconds apart from the stages'; [12d] ``optimize`` on the full-size
+   bench problem through ``parallel.sharding`` in a one-rank NCCL group,
+   in both step forms: the kernels launched, at least one all-reduce per
+   CG iteration, the result bit for bit equal to the unsharded
+   ``optimize``, the LM it/s of both and the time of one all-reduce;
+13. prints one JSON line listing every kernel (with its launches per
+   pipeline grid of [7], of [9a], of [12c], for the K = 5 window rows of
+   [9b], for ``project`` of each [10] run, and per step form of [12d]),
+   the ``nvidia-smi`` line of the card, and last ``{"ok": true,
+   "device": {...}}``.
 
 It exits non-zero, without the last line, when there is no CUDA card, when
 the package is missing, or when any phase fails.
@@ -182,7 +202,7 @@ import os
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from unittest import mock
 
 import numpy as np
@@ -311,6 +331,37 @@ STEREO_NORMAL_DOT = 0.95
 # right PatchMatch 1 + 4·12, LR mask 1
 STEREO_LAUNCHES = {"patch_match": 365, "plane_sweep": 219}
 COLMAP_NN_MEDIAN_M = 0.04  # STEREO_MEDIAN_REL of the 2 m plane
+
+# Live input ([12]).  [12a] records [8]'s 30 views through ``record``: one
+# ``FeatureDetector.detect`` per frame where [8]'s extract-features ran
+# ``detect_batch`` over all of them.  The two refine the same predictions
+# in batches of other compositions: the detector draws 8 anti-aliasing
+# offsets of its matching stage per refinement batch, and float32 batched
+# products round by batch shape, so a feature on a flat stretch of the
+# symmetry cost can converge elsewhere (the reference's design).  On an
+# H100 the same ids in all 30 views, the positions 3.7e-4 px apart at the
+# median, 1.6e-2 px at the 99th percentile and 2.9 px at most, 113 of the
+# 13,413 features (0.84%) more than 5e-2 px apart; against the rendered
+# truth the largest distance 2.67 px per frame, 2.03 px batched (on a CPU
+# rehearsal, float32: 2e-4 px, 1.4e-2 px).  So the bars: every view kept,
+# with the same feature ids; the median gap within RECORD_MEDIAN_PX, 99%
+# of the gaps within RECORD_P99_PX and at most RECORD_TAIL_FRACTION of
+# the features beyond it; the recorded positions as close to the
+# rendered truth as [8]'s bar (median under IMAGE_MEDIAN_TRUTH_PX), and
+# their largest distance to it within RECORD_TRUTH_MAX_FACTOR of the
+# batched features' largest.
+RECORD_MEDIAN_PX = 1e-3
+RECORD_P99_PX = 5e-2
+RECORD_TAIL_FRACTION = 0.02
+RECORD_TRUTH_MAX_FACTOR = 2.0
+# [12b]: the live frame rate as benchmarks/live_fps.py measures the
+# reference package's: 24 VGA views of a 12×12 board, frame 0 excluded.
+LIVE_FPS_VIEWS, LIVE_FPS_SIZE, LIVE_FPS_SEED = 24, (640, 480), 7
+LIVE_FPS_MIN_KEPT = 0.8  # 23 of the 24 views hold a detected board
+# [12c]: ``calibrate --live_directory`` writes these hooks' images.
+LIVE_HOOK_PNGS = ("initialization", "reprojection_errors", "removed_outliers",
+                  "error_histogram", "error_directions",
+                  "observation_directions")
 
 
 def log(*args):
@@ -1506,6 +1557,24 @@ def main() -> int:
     # ----------------------- 11. the COLMAP tools and the visualization
     colmap_pipeline(torch, smi, cli_run, images["dataset"], stereo)
     log(f"[11] whole run {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------- 12. live input, the visualizer and sharding
+    recorded = record_pipeline(torch, smi, images)
+    log(f"[12a] whole run {time.perf_counter() - t_start:.1f} s")
+    live_frame_rate(torch, smi)
+    log(f"[12b] whole run {time.perf_counter() - t_start:.1f} s")
+    live = live_calibration(torch, smi, recorded)
+    log(f"[12c] whole run {time.perf_counter() - t_start:.1f} s")
+    sharded = sharded_optimize(torch, smi)
+    log(f"[12d] whole run {time.perf_counter() - t_start:.1f} s")
+    for row in kernels:
+        if row["name"] in PIPELINE_KERNELS:
+            row["live_launches"] = {
+                grid: counts.get(row["name"], 0)
+                for grid, counts in live["launches"].items()}
+            row["sharded_launches"] = {
+                form: counts.get(row["name"], 0)
+                for form, counts in sharded["launches"].items()}
     for row in kernels:
         if row["name"] == "project":
             row["stereo_launches"] = stereo["launches"]
@@ -2041,7 +2110,8 @@ def image_pipeline(torch, smi, n_views, device=None):
         f"{times['detect']:.2f} on {smi}; the calibration of this dataset "
         "is [9a]'s")
     return {"dataset": path, "out_dir": out_dir, "times": times,
-            "refinements_per_s": n_f / best}
+            "refinements_per_s": n_f / best, "views": out_dir / "views",
+            "pattern": f"{base}.yaml"}
 
 
 @contextmanager
@@ -2688,6 +2758,380 @@ def sparse_intrinsics_jacobian(torch, j_win, base, gh, gw, k):
     jt = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals, size[::-1],
                                  check_invariants=False)
     return (j.coalesce().to_sparse_csr(), jt.coalesce().to_sparse_csr())
+
+
+def record_pipeline(torch, smi, images, device=None):
+    """[12a]: ``cli.main record`` of [8]'s rendered 1920×1080 views from a
+    ``dir:`` input, detection on ``device`` (the card by default) one frame
+    at a time, ``--record_images``.  Gates: every view kept, with the
+    feature ids of [8]'s extract-features dataset; the positions against
+    that dataset's and against the rendered truth within the RECORD_*
+    bars (see there); 30 recorded images and the coverage map.  Prints
+    the host seconds per frame: reading the image, detection, the
+    consumer's bookkeeping.  Returns the recorded dataset's path and the
+    output directory."""
+    import shutil
+
+    from camera_calibration_torch import cli
+    from camera_calibration_torch.io import dataset_bin
+    from camera_calibration_torch.ui import live_capture
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    on = [] if device is None else ["--device", str(dev)]
+    out = images["out_dir"] / "record"
+    shutil.rmtree(out, ignore_errors=True)
+    seen = {}
+    run = live_capture.run_live_capture
+
+    def timed_run(image_input, consumer, stop_event=None):
+        t0 = time.perf_counter()
+        kept = run(image_input, consumer, stop_event)
+        seen.update(consumer=consumer, seconds=time.perf_counter() - t0)
+        return kept
+
+    t0 = time.perf_counter()
+    with mock.patch.object(live_capture, "run_live_capture", timed_run):
+        rc = cli.main(["record", "--inputs", f"dir:{images['views']}",
+                       "--pattern_files", str(images["pattern"]),
+                       "--record_images", "--output_directory", str(out),
+                       *on])
+    total = time.perf_counter() - t0
+    require(rc == 0, f"record exited with {rc}")
+    got = dataset_bin.load_datasets(str(out / "dataset.bin"))
+    ref = dataset_bin.load_datasets(str(images["dataset"]))
+    n = len(ref.imagesets)
+    kept = {int(a.filenames[0][len("image"):-len(".png")]): a
+            for a in got.imagesets}
+    log(f"[12a] record: {len(kept)} of {n} views kept")
+    if len(kept) != n or got.image_sizes != ref.image_sizes:
+        raise SmokeFailure(f"record kept {len(kept)} of {n} views")
+    # the rendered truth of every view (the render drew each view's noise
+    # from the generator of its pose)
+    from camera_calibration_torch.features import pattern as pat
+    from camera_calibration_torch.features.degrade import degrade
+
+    spec = pat.load_pattern_yaml(str(images["pattern"]))
+    corner_map = pat.corners_for_patterns([spec])[0]
+    (w, h), = ref.image_sizes
+    homographies = []
+    for _, h_pp, view_rng in cli.render_views(spec, n, w, h, IMAGE_MIN_Z,
+                                              IMAGE_MAX_Z, IMAGE_SEED):
+        homographies.append(h_pp)
+        degrade(np.zeros((h, w)), view_rng, defocus_sigma=IMAGE_DEFOCUS,
+                noise=IMAGE_NOISE)
+
+    def truth_gap(i, fid, xy):
+        q = homographies[i] @ np.array([*corner_map[fid], 1.0])
+        return float(np.linalg.norm(xy - q[:2] / q[2]))
+
+    same_ids, worst_ids, gaps, truth = 0, 0.0, [], {"record": [], "batch": []}
+    for i, a in sorted(kept.items()):
+        fa = {f.feature_id: np.asarray(f.xy) for f in a.features[0]}
+        fb = {f.feature_id: np.asarray(f.xy) for f in
+              ref.imagesets[i].features[0]}
+        same_ids += sorted(fa) == sorted(fb)
+        worst_ids = max(worst_ids, len(set(fa) ^ set(fb)) / max(len(fb), 1))
+        gaps += [float(np.abs(fa[k] - fb[k]).max()) for k in fa if k in fb]
+        truth["record"] += [truth_gap(i, k, xy) for k, xy in fa.items()]
+        truth["batch"] += [truth_gap(i, k, xy) for k, xy in fb.items()]
+    gaps = np.asarray(gaps)
+    log(f"[12a] record: {len(gaps)} features in both datasets; the same "
+        f"feature ids as extract-features in {same_ids} of {len(kept)} "
+        f"views, at most {100 * worst_ids:.2f}% of a view's features in one "
+        f"only; per-frame detect vs batched detect_batch |Δ| median "
+        f"{float(np.median(gaps)):.3e} px, 99th percentile "
+        f"{float(np.percentile(gaps, 99)):.3e}, max {float(gaps.max()):.3e} "
+        f"({int((gaps > RECORD_P99_PX).sum())} over {RECORD_P99_PX} px)")
+    for label, t in truth.items():
+        log(f"[12a] {label} positions against the rendered truth: median "
+            f"{float(np.median(t)):.4f} px, 99th percentile "
+            f"{float(np.percentile(t, 99)):.4f}, max {max(t):.4f}")
+    require(same_ids == n,
+            "record found other features than extract-features")
+    require(np.median(gaps) <= RECORD_MEDIAN_PX
+            and np.percentile(gaps, 99) <= RECORD_P99_PX
+            and (gaps > RECORD_P99_PX).sum() <= RECORD_TAIL_FRACTION
+            * gaps.size, "record's positions are off extract-features'")
+    require(np.median(truth["record"]) < IMAGE_MEDIAN_TRUTH_PX
+            and max(truth["record"])
+            <= RECORD_TRUTH_MAX_FACTOR * max(truth["batch"]),
+            "record's positions are off the rendered truth")
+    n_rec = len(list((out / "images_camera0").glob("image*.png")))
+    require(n_rec == n and (out / "coverage_camera0.png").exists(),
+            f"record wrote {n_rec} images or no coverage map")
+    c = seen["consumer"]
+    log(f"[12a] record host seconds per frame: {total / n:.3f} the whole "
+        f"command, {(seen['seconds'] - c.imageset_seconds) / n:.3f} reading "
+        f"the image, {c.detect_seconds / n:.3f} detection, "
+        f"{(c.imageset_seconds - c.detect_seconds) / n:.3f} bookkeeping "
+        f"(coverage, recording); whole command {total:.2f} s "
+        f"(extract-features of the same views in one batch: "
+        f"{images['times']['detect']:.2f} s) on {smi}")
+    return {"dataset": out / "dataset.bin", "out_dir": out}
+
+
+def live_frame_rate(torch, smi, device=None, n_views=LIVE_FPS_VIEWS):
+    """[12b]: the live frame rate as ``benchmarks/live_fps.py`` measures
+    the reference package's: ``n_views`` rendered 640×480 views of a 12×12
+    board through ``run_live_capture`` from a ``dir:`` input, detection
+    on ``device`` (the card by default); each frame's host time around
+    ``new_imageset``, frame 0 excluded."""
+    import shutil
+
+    from camera_calibration_torch import _cuda, cli
+    from camera_calibration_torch.ba.dataset import Dataset
+    from camera_calibration_torch.features import detector as fdet
+    from camera_calibration_torch.features import pattern as pat
+    from camera_calibration_torch.io.image_input import create_image_input
+    from camera_calibration_torch.ui import live_capture
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    root = _cuda.BUILD_ROOT / "live_fps"
+    shutil.rmtree(root, ignore_errors=True)
+    cli.main(["create-pattern", "--output_directory", str(root / "pat"),
+              "--squares_x", "12", "--squares_y", "12",
+              "--square_length_in_meters", "0.02"])
+    yaml = root / "pat" / "pattern_resolution_12x12_segments_16.yaml"
+    w, h = LIVE_FPS_SIZE
+    cli.main(["render-synthetic", "--pattern_file", str(yaml),
+              "--output_directory", str(root / "images"), "--num_images",
+              str(n_views), "--width", str(w), "--height", str(h),
+              "--min_z", "0.35", "--max_z", "0.55", "--noise", "0.01",
+              "--seed", str(LIVE_FPS_SEED)])
+    det = fdet.FeatureDetector([pat.load_pattern_yaml(str(yaml))], device=dev)
+    consumer = live_capture.LiveImageConsumer(
+        Dataset(num_cameras=1, image_sizes=[]), det,
+        live_capture.LiveCaptureOptions(visualization_directory=None),
+        log=lambda *a: None)
+    frames, new_imageset = [], consumer.new_imageset
+
+    def timed(images, filenames=None):
+        d0 = consumer.detect_seconds
+        t0 = time.perf_counter()
+        kept = new_imageset(images, filenames)
+        frames.append((time.perf_counter() - t0,
+                       consumer.detect_seconds - d0))
+        return kept
+
+    consumer.new_imageset = timed
+    with create_image_input(f"dir:{root / 'images'}") as image_input:
+        kept = live_capture.run_live_capture(image_input, consumer)
+    ft = np.asarray([f[0] for f in frames[1:]])
+    dt = np.asarray([f[1] for f in frames[1:]])
+    feats = [len(s.features[0]) for s in consumer.dataset.imagesets[1:]]
+    log(f"[12b] live detection at {w}x{h}: "
+        f"{1.0 / float(np.median(ft)):.2f} frames/s (median of {ft.size} "
+        f"frames, frame 0 excluded: {frames[0][0]:.3f} s); frame ms median "
+        f"{1e3 * float(np.median(ft)):.1f}, p90 "
+        f"{1e3 * float(np.percentile(ft, 90)):.1f}; per frame detection "
+        f"{1e3 * float(np.median(dt)):.1f} ms, bookkeeping "
+        f"{1e3 * float(np.median(ft - dt)):.2f} ms; {kept} of {n_views} "
+        f"views kept, median {float(np.median(feats)):.0f} features on {smi}")
+    # a view whose board the detector misses is dropped, as the reference
+    # benchmark counts it; most views must hold the board
+    require(kept >= LIVE_FPS_MIN_KEPT * n_views,
+            f"live capture kept {kept} of {n_views} views")
+    return 1.0 / float(np.median(ft))
+
+
+def live_calibration(torch, smi, recorded, device=None):
+    """[12c]: ``cli.main calibrate --dataset_files <[12a]'s dataset.bin>``
+    with the defaults (three levels to 45×79, float32 on ``device``, the
+    card by default, and the float64 polish), first without and then with
+    ``--live_directory`` (both with ``--dense_initialization_base_path``:
+    the first computes the initialization and saves it, the second loads
+    it; the launch counts are set to 0 just before the second).  Gates:
+    the calibration bar of [9a] (median < IMAGE_MEDIAN_PX, scale, final
+    grid 45×79, the five kernels at each pyramid grid), every hook image
+    of LIVE_HOOK_PNGS, and the final state and report equal, bit for bit,
+    to the run without the visualizer.  Prints the hooks' host seconds
+    apart from the stages'."""
+    import shutil
+
+    from camera_calibration_torch import calibrate as cal
+    from camera_calibration_torch import cli
+    from camera_calibration_torch.ui import calibration_visualizer as cv
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    on = [] if device is None else ["--device", str(dev)]
+    out = recorded["out_dir"] / "calibrate"
+    shutil.rmtree(out, ignore_errors=True)
+    base = ["calibrate", "--dataset_files", str(recorded["dataset"]),
+            "--dense_initialization_base_path", str(out / "init.npz"), *on]
+    plain_times, plain = {}, {}
+    with timed_cli_stages(plain_times, plain):
+        rc = cli.main(base + ["--output_directory", str(out / "plain")])
+    require(rc == 0, f"calibrate exited with {rc}")
+
+    hooks = {}
+
+    def timed_hook(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            acc = hooks.setdefault(name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += time.perf_counter() - t0
+            return result
+        return run
+
+    names = [n for n in vars(cv.CalibrationVisualizer)
+             if n.startswith("update_")]
+    times, captured = {}, {}
+    rec = CalibrationRecord(torch, dev)
+    live = out / "live_images"
+    with ExitStack() as stack:
+        for n in names:
+            stack.enter_context(mock.patch.object(
+                cv.CalibrationVisualizer, n,
+                timed_hook(n, getattr(cv.CalibrationVisualizer, n))))
+        stack.enter_context(timed_cli_stages(times, captured))
+        stack.enter_context(rec.recording(cal))
+        rc = cli.main(base + ["--output_directory", str(out / "live"),
+                              "--live_directory", str(live)])
+    require(rc == 0, f"calibrate --live_directory exited with {rc}")
+    st_f, data_f, report = captured["result"]
+    per_grid = rec.summarize("[12c]", report, times, smi)
+    rec.gate(st_f, report, IMAGE_MEDIAN_PX, PIPELINE_KERNELS)
+    for name in LIVE_HOOK_PNGS:
+        require((live / f"{name}_camera0.png").exists(),
+                f"calibrate --live_directory wrote no {name} image")
+    p_state, p_data, p_report = plain["result"]
+    same = all(torch.equal(a, b) for a, b in zip(
+        state_tensors(st_f) + state_tensors(data_f),
+        state_tensors(p_state) + state_tensors(p_data)))
+    untimed = [{k: v for k, v in r.items() if k != "solver"}
+               for r in (report, p_report)]
+    log(f"[12c] final state with the visualizer "
+        f"{'bit for bit equal to' if same else 'DIFFERENT from'} the run "
+        f"without it (median {report['reprojection_error_median']:.7g} vs "
+        f"{p_report['reprojection_error_median']:.7g} px)")
+    require(same and untimed[0] == untimed[1],
+            "the visualizer changed the calibration")
+    hook_s = sum(v[1] for v in hooks.values())
+    log(f"[12c] hooks' host seconds {hook_s:.3f} in all: "
+        + ", ".join(f"{n[len('update_'):]} {c}x {s_:.3f} s"
+                    for n, (c, s_) in sorted(hooks.items()))
+        + f"; stages: {json.dumps(times, sort_keys=True)} (without the "
+        f"visualizer: {json.dumps(plain_times, sort_keys=True)}) on {smi}")
+    return {"launches": per_grid, "report": report}
+
+
+def state_tensors(obj):
+    """Every tensor of a state or of tables, in field order."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for x in obj for t in state_tensors(x)]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in state_tensors(getattr(obj, f.name))]
+    return []
+
+
+def sharded_optimize(torch, smi, device=None):
+    """[12d]: ``optimize`` on the full-size bench problem through
+    ``parallel.sharding`` in a one-rank process group (NCCL on the card,
+    gloo on the CPU; a free local port), in both step forms (10 LM
+    iterations, no early stop, as [5] times them), against the unsharded
+    ``optimize`` from the same start.  Gates: all five kernels launched
+    in the sharded runs (the two-pass form; the cached-blocks form has no
+    cost-only pass, so all but ``project``); at least one all-reduce per CG iteration; the
+    histories and the final states equal bit for bit.  Prints the LM it/s
+    of both and the host time of one all-reduce of a tangent."""
+    import socket
+
+    import torch.distributed as dist
+
+    from camera_calibration_torch import _cuda, problems
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.parallel import distributed, sharding
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    require(distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=dev),
+            "the process group did not initialize")
+    log(f"[12d] one-rank {dist.get_backend()} group on 127.0.0.1:{port}")
+    launches = {}
+    try:
+        state, data, _ = problems.make_bench_problem(device=dev)
+        n_it = 10
+        base = lm_pcg.BAOptions(max_pcg_iterations=20, proj_iterations=4,
+                                max_lm_iterations=n_it,
+                                cost_reduction_threshold=0.0,
+                                max_consecutive_rejects=n_it + 1)
+        for form, k in (("two-pass", 1), ("cached-blocks", n_it)):
+            opts = dataclasses.replace(base, lm_steps_per_call=k)
+            data_g = lm_pcg.maybe_grid_layout(data, state, opts)
+            shards = sharding.shard_observations(data_g)
+            runs = {}
+            for label, tables in (("unsharded", data_g), ("sharded", shards),
+                                  ("sharded", shards),
+                                  ("unsharded", data_g)):
+                s0 = problems.perturb_bench_state(state, seed=100)
+                _cuda.reset_launches()
+                sharding.reset_collectives()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, info = lm_pcg.optimize(s0, None, None, opts, data=tables)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                runs.setdefault(label, []).append(dict(
+                    state=st, history=info["history"], seconds=dt,
+                    launches=dict(_cuda.launches),
+                    collectives=dict(sharding.collectives)))
+            sh, un = runs["sharded"][0], runs["unsharded"][0]
+            launches[form] = sh["launches"]
+            cg_total = sum(h["pcg_iterations"] for h in sh["history"])
+            n_reduce = sh["collectives"].get("all_reduce", 0)
+            same = (sh["history"] == un["history"]
+                    and all(torch.equal(a, b) for a, b in zip(
+                        state_tensors(sh["state"]),
+                        state_tensors(un["state"]))))
+            rates = {lbl: [len(r["history"]) / r["seconds"] for r in rs]
+                     for lbl, rs in runs.items()}
+            log(f"[12d] {form}: {len(sh['history'])} LM iterations, "
+                f"{cg_total} CG iterations, {n_reduce} all-reduces; sharded "
+                f"{'bit for bit equal to' if same else 'DIFFERENT from'} "
+                f"unsharded; LM it/s sharded "
+                f"{', '.join(f'{r:.3f}' for r in rates['sharded'])}, "
+                f"unsharded {', '.join(f'{r:.3f}' for r in rates['unsharded'])}"
+                f"; launches {json.dumps(sh['launches'], sort_keys=True)} "
+                f"on {smi}")
+            # the cached-blocks form has no cost-only pass: no ``project``
+            for name in PIPELINE_KERNELS[k > 1:]:
+                require(sh["launches"].get(name, 0) > 0,
+                        f"[12d] {form}: kernel {name} never launched")
+            require(n_reduce >= cg_total, f"[12d] {form}: {n_reduce} "
+                    f"all-reduces for {cg_total} CG iterations")
+            require(same, f"[12d] {form}: the sharded optimize differs from "
+                    "the unsharded one")
+        # one all-reduce of a tangent of the bench problem
+        shard = sharding.shard_of(shards)
+        flat = lm_pcg.zero_tangent(state).ravel()
+        if dev.type == "cuda":
+            ms = time_ms(torch, lambda: sharding.all_reduce_sum(
+                shard, [flat]), reps=100)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(100):
+                sharding.all_reduce_sum(shard, [flat])
+            ms = (time.perf_counter() - t0) * 10.0
+        log(f"[12d] one all-reduce of the bench tangent ({flat.numel()} "
+            f"floats): {ms:.4f} ms (events around 100 calls); "
+            f"{n_reduce / max(cg_total, 1):.2f} all-reduces per CG iteration "
+            f"on {smi}")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches}
 
 
 def device_profile(torch, run, trace_name):

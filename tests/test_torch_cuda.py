@@ -21,6 +21,11 @@ The detector and the fused corner refinement run in float32 on the card
 against float64 on the CPU (the same features, positions within 1e-3 px
 at the median or 95th percentile and 1e-2 px at most).
 
+The live consumer runs on the card against the CPU, and so do the
+visualizer's error arrays (through the ``project`` kernel against the
+plain projection); one LM step on tables sharded over a one-rank NCCL
+group equals the unsharded step bit for bit.
+
 The calibration pipeline (dense initialization, ``build_ba_state``,
 ``calibrate``) runs on the small dataset of ``tests/test_e2e.py`` in
 float32 on the card and on the CPU: the same outliers, medians within 1e-3
@@ -987,3 +992,125 @@ def test_patch_match_round_on_the_card_matches_plain(card, monkeypatch):
     assert float(same.float().mean()) >= 0.95
     assert int((fk != fp).sum()) <= 0.005 * fk.numel()
     assert float(close.float().mean()) >= 0.99
+
+
+def test_live_consumer_on_the_card_matches_the_cpu(card, tmp_path):
+    """``LiveImageConsumer`` over a ``dir:`` input of two tagged boards and
+    a blank frame, detecting on the card and on the CPU (float32 both):
+    the same kept frames and feature ids, positions within 1e-3 px at the
+    median and 1e-2 px at most (the detector test's bars)."""
+    import cv2
+
+    from camera_calibration_torch.ba.dataset import Dataset
+    from camera_calibration_torch.features import detector as fdet
+    from camera_calibration_torch.io.image_input import create_image_input
+    from camera_calibration_torch.ui import live_capture as lc
+
+    boards = [_tagged_board(seed) for seed in (4, 5)]
+    spec = boards[0][0]
+    frames = [(b[1] * 255).astype(np.uint8) for b in boards]
+    frames.append(np.full_like(frames[0], 255))
+    (tmp_path / "cam0").mkdir()
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(tmp_path / "cam0" / f"img{i:03d}.png"), f)
+
+    def consume(device):
+        ds = Dataset(num_cameras=1, image_sizes=[])
+        consumer = lc.LiveImageConsumer(
+            ds, fdet.FeatureDetector([spec], device=device),
+            lc.LiveCaptureOptions(), log=lambda *a: None)
+        with create_image_input(f"dir:{tmp_path / 'cam0'}") as inp:
+            kept = lc.run_live_capture(inp, consumer)
+        return kept, ds
+
+    (k_card, on_card), (k_cpu, on_cpu) = consume(card), consume("cpu")
+    assert k_card == k_cpu == 2
+    for a, b in zip(on_card.imagesets, on_cpu.imagesets):
+        g = {f.feature_id: f.xy for f in a.features[0]}
+        w = {f.feature_id: f.xy for f in b.features[0]}
+        assert sorted(g) == sorted(w) and len(g) > 30
+        gaps = np.array([np.abs(g[k] - w[k]).max() for k in w])
+        assert np.median(gaps) <= 1e-3 and gaps.max() <= 1e-2, gaps.max()
+
+
+def test_visualizer_arrays_on_the_card_match_the_cpu(card):
+    """The histogram and direction hooks' arrays of a float32 bench-shaped
+    state whose measured pixels lie 0.05 px (σ) off its own projections,
+    through the ``project`` kernel on the card against the plain
+    projection on the CPU: the same observations, error vectors within
+    the projection tolerance (1e-3 px), histogram counts apart only where
+    an error moved across a bin edge (1% of the counts), the direction
+    colours within 0.05 where the error is over 0.05 px."""
+    from camera_calibration_torch.ba.dataset import ObservationTable
+    from camera_calibration_torch.ba.state import transform_to_camera
+    from camera_calibration_torch.models import protocol
+    from camera_calibration_torch.models.base import cast_floating
+    from camera_calibration_torch.ui import calibration_visualizer as cv
+
+    state, data, _ = problems.make_bench_problem(device=card, n_points=256,
+                                                 n_poses=32)
+    seg = data[0]
+    x_cam, _ = transform_to_camera(state, seg.imageset, seg.camera,
+                                   state.points[seg.point])
+    px, _, ok = protocol.project_points(state.intrinsics[0], x_cam,
+                                        init_xy=seg.pixel, max_iterations=30)
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.normal(0, 0.05, tuple(seg.pixel.shape)),
+                            dtype=torch.float32, device=card)
+    data = (ObservationTable(seg.imageset, seg.camera, seg.point,
+                             torch.where(ok[:, None], px, seg.pixel) + noise,
+                             seg.valid & ok, seg.grid_shape),)
+    before = _cuda.launches["project"]
+    (pix_k, e_k), = cv.error_vectors(state, data)
+    assert _cuda.launches["project"] > before
+    (pix_p, e_p), = cv.error_vectors(cast_floating(state, device="cpu"),
+                                     cast_floating(data, device="cpu"))
+    assert pix_k.shape == pix_p.shape and np.array_equal(pix_k, pix_p)
+    assert np.abs(e_k - e_p).max() <= PX_TOL
+    h_k = cv.error_histogram_counts(e_k, 0.2)
+    h_p = cv.error_histogram_counts(e_p, 0.2)
+    assert h_k.sum() == h_p.sum() > 0.9 * len(e_k)
+    assert np.abs(h_k - h_p).sum() <= 0.01 * h_p.sum()
+    far = np.abs(e_p).max(axis=1) > 0.05  # the hue moves < 0.02 rad there
+    np.testing.assert_allclose(cv.error_direction_rgb(e_k[far]),
+                               cv.error_direction_rgb(e_p[far]),
+                               rtol=0, atol=0.05)
+
+
+def test_one_rank_nccl_step_is_the_unsharded_step(card):
+    """One LM step of a bench-shaped problem on tables sharded over a
+    one-rank NCCL group equals the unsharded step bit for bit (an
+    all-reduce over one rank is a copy), with an all-reduce for every CG
+    iteration."""
+    import socket
+
+    import torch.distributed as dist
+
+    from camera_calibration_torch.parallel import distributed, sharding
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=card)
+    try:
+        assert dist.get_backend() == "nccl"
+        state, data, _ = problems.make_bench_problem(device=card,
+                                                     n_points=256, n_poses=32)
+        options = lm_pcg.BAOptions(max_pcg_iterations=20)
+        warm = tuple(s_.pixel for s_ in data)
+        lam = torch.tensor(-1.0, device=card)
+        plain = lm_pcg.lm_step(state, warm, lam, data, options)
+        sharding.reset_collectives()
+        sharded = lm_pcg.lm_step(state, warm, lam,
+                                 sharding.shard_observations(data), options)
+        assert sharding.collectives["all_reduce"] >= sharded[6] > 0
+        assert plain[3] == sharded[3] and plain[6] == sharded[6]
+        for a, b in zip(plain[4:6] + plain[7:9], sharded[4:6] + sharded[7:9]):
+            assert torch.equal(a, b)
+        for name in ("rig_q_global", "rig_t_global", "points"):
+            assert torch.equal(getattr(plain[0], name),
+                               getattr(sharded[0], name))
+        assert torch.equal(plain[0].intrinsics[0].grid,
+                           sharded[0].intrinsics[0].grid)
+    finally:
+        dist.destroy_process_group()

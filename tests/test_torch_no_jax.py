@@ -64,7 +64,11 @@ NEW_MODULES = ("models/parametric.py", "models/pinhole.py", "ba/gn.py",
                "cli.py", "init/noncentral_init.py", "io/meshlab.py",
                "report/__init__.py", "report/raster.py",
                "report/calibration_report.py", "report/fitting_report.py",
-               "stereo/__init__.py", "stereo/patch_match.py", "io/colmap.py")
+               "stereo/__init__.py", "stereo/patch_match.py", "io/colmap.py",
+               "io/image_input.py", "ui/__init__.py", "ui/live_capture.py",
+               "ui/pattern_display.py", "ui/calibration_visualizer.py",
+               "sdk.py", "parallel/__init__.py", "parallel/sharding.py",
+               "parallel/distributed.py")
 
 
 def test_no_forbidden_imports():
