@@ -95,8 +95,13 @@ RESTYPES = {
     "cct_window_block_diag_smem_bytes": ctypes.c_longlong,
 }
 
-# Shared memory one block may use on Hopper (227 KB).
+# Shared memory one block may use on Hopper (227 KB); one SM's (228 KB),
+# of which each resident block takes 1 KB for the system; threads of one
+# SM.
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+SM_THREADS = 2048
 
 # Launches per kernel, counted by the wrappers (reset with reset_launches).
 launches: collections.Counter = collections.Counter()

@@ -37,35 +37,54 @@ from camera_calibration_torch import _cuda
 SUPPORTED_K = (2, 5)
 
 
-# The two tile layouts of a reduction block (``cct::Tile<K, kRing, E>`` in
-# ``csrc/window_reduce.cuh``), as (observations per tile, stages): a ring
-# of two 64-observation stages wherever it fits in one block's shared
-# memory, else one compact stage of 32.
-RING = (64, 2)
-COMPACT = (32, 1)
+# The layout of a reduction block (``csrc/window_reduce.cuh``): THREADS
+# threads; tiles of TILE observations, staged as float32 rows of STRIDE;
+# thread-block clusters of CLUSTER blocks that sum their accumulators into
+# one partial row.  Grids of at most OWNER_KNOTS knots take the knot-owner
+# scheme (two owner threads a knot, row and column masks of WORDS words);
+# larger grids the slot-class scheme (one warp per slot class of knots).
+TILE = 64
+THREADS = 512
+STRIDE = TILE + 1
+CLUSTER = 2
+WORDS = TILE // 32
+OWNER_KNOTS = THREADS // WORDS
+REDUCTIONS = ("window_apply_jtw", "window_block_diag")
+
+
+def per_knot(name: str, k: int) -> int:
+    """Values per knot of reduction kernel ``name``: K for JᵀW·s, the
+    K(K+1)/2 upper pairs of a block for the block diagonal."""
+    return {"window_apply_jtw": k, "window_block_diag": k * (k + 1) // 2}[name]
 
 
 def prep_rows(name: str, k: int) -> int:
-    """The float32 rows a bfloat16 tile of reduction kernel ``name`` is
-    prepared into, as its C++ Op declares them (``kPrepRows``): ``JtwOp``
-    keeps 16K, ``BlockDiagOp`` widens all 32K."""
-    return {"window_apply_jtw": 16, "window_block_diag": 32}[name] * k
+    """Float32 rows of one observation in the stage of reduction kernel
+    ``name``, as its C++ Op declares them (``kPrepRows``), for either
+    element type: ``JtwOp`` keeps 16K (ws folded in); ``BlockDiagOp`` the
+    16 slots' K(K+1)/2 products where they take no more rows than a slot's
+    2K values (K = 2), else the 32K values and the weight."""
+    if name == "window_apply_jtw":
+        return 16 * k
+    pk = per_knot(name, k)
+    return 16 * pk if pk <= 2 * k else 32 * k + 1
 
 
-def _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes=4,
-                       prep_rows=0):
-    """One block's bytes: the stages (32K j_win rows of ``tile + 16 /
-    elem_bytes`` elements, two floats and two ints per observation), for a
-    bfloat16 j_win the float32 area its ``prep_rows`` prepared rows of
-    ``tile + 4`` floats go to, the masks and the accumulator grid."""
-    tile, stages = layout
-    if elem_bytes != 4 and prep_rows <= 0:
-        raise ValueError("a bfloat16 reduction plan needs the kernel's "
-                         "prep_rows (window_cuda.prep_rows)")
-    rows_floats = 32 * k * (tile + 16 // elem_bytes) * elem_bytes // 4
-    prep = 0 if elem_bytes == 4 else prep_rows * (tile + 4)
-    return 4 * (stages * (rows_floats + 4 * tile) + prep
-                + (rows + gw) * (tile // 32) + rows * gw * per_knot)
+def uses_owners(gh: int, gw: int) -> bool:
+    """Whether the reductions take the knot-owner scheme at this grid
+    (``cct::use_owners``): at most OWNER_KNOTS knots.  Larger grids take
+    the slot-class scheme."""
+    return gh * gw <= OWNER_KNOTS
+
+
+def _band_smem_bytes(name, rows, gw, k, owners=False):
+    """One block's bytes: the stage (``prep_rows`` rows of STRIDE floats,
+    two int rows of TILE window bases), in the owner scheme the masks
+    ((rows + gw) × WORDS words), and the band's accumulator of rows × gw
+    knots."""
+    return 4 * (prep_rows(name, k) * STRIDE + 2 * TILE
+                + (rows + gw) * WORDS * owners
+                + rows * gw * per_knot(name, k))
 
 
 def _fits(nbytes):
@@ -73,76 +92,73 @@ def _fits(nbytes):
 
 
 @functools.cache
-def reduction_plan(gh: int, gw: int, k: int, per_knot: int,
-                   elem_bytes: int = 4, *, prep_rows: int = 0) -> tuple:
-    """(layout, band rows) of the reduction kernels' blocks at this grid
-    for a j_win of ``elem_bytes``-byte elements (``cct::band_rows`` and
-    ``cct::use_ring``); a bfloat16 j_win also needs the kernel's
-    :func:`prep_rows`.
+def reduction_plan(name: str, gh: int, gw: int, k: int) -> int:
+    """Grid rows per band of reduction kernel ``name``'s blocks at this
+    grid (``cct::band_rows``), for either element type.
 
-    A block keeps ``band rows`` grid rows of the (gh, gw, per_knot)
-    accumulator: all gh where the compact layout of the whole grid fits one
-    block, else ``ceil(gh / nb)`` for the fewest bands ``nb`` that fit.
-    The layout is :data:`RING` where it fits at those rows, else
-    :data:`COMPACT`.  Raises where one grid row does not fit."""
-    def nbytes(rows, layout):
-        return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes,
-                                  prep_rows)
-
+    A block keeps ``band rows`` grid rows of the accumulator: all gh where
+    the whole grid fits one block, else ``ceil(gh / nb)`` for the fewest
+    bands ``nb`` that fit.  Raises where one grid row does not fit."""
+    owners = uses_owners(gh, gw)
     for nb in range(1, gh + 1):
         rows = -(-gh // nb)
-        if _fits(nbytes(rows, COMPACT)):
-            return (RING if _fits(nbytes(rows, RING)) else COMPACT), rows
+        if _fits(_band_smem_bytes(name, rows, gw, k, owners)):
+            return rows
     raise ValueError(
-        f"window reduction: one grid row of {gw} knots x {per_knot} values "
-        f"needs {nbytes(1, COMPACT)} bytes of shared memory, above the "
-        f"{_cuda.MAX_SMEM_BYTES}-byte limit of one Hopper block")
+        f"{name}: one grid row of {gw} knots x {per_knot(name, k)} values "
+        f"needs {_band_smem_bytes(name, 1, gw, k)} bytes of shared memory, "
+        f"above the {_cuda.MAX_SMEM_BYTES}-byte limit of one Hopper block "
+        f"(rows of at most {widest_row(name, k)} knots fit)")
 
 
-def reduction_layout(gh: int, gw: int, k: int, per_knot: int,
-                     elem_bytes: int = 4, *, prep_rows: int = 0) -> tuple:
-    """The layout (:data:`RING` or :data:`COMPACT`) of the reduction
-    kernels' blocks at this grid."""
-    return reduction_plan(gh, gw, k, per_knot, elem_bytes,
-                          prep_rows=prep_rows)[0]
-
-
-def reduction_bands(gh: int, gw: int, k: int, per_knot: int,
-                    elem_bytes: int = 4, *, prep_rows: int = 0) -> tuple:
+def reduction_bands(name: str, gh: int, gw: int, k: int) -> tuple:
     """(band rows, bands): the second dimension of the partial pass's
     launch grid (1 band where the whole grid fits one block)."""
-    rows = reduction_plan(gh, gw, k, per_knot, elem_bytes,
-                          prep_rows=prep_rows)[1]
+    rows = reduction_plan(name, gh, gw, k)
     return rows, -(-gh // rows)
 
 
-def reduction_smem_bytes(gh: int, gw: int, k: int, per_knot: int,
-                         band_rows: int | None = None,
-                         elem_bytes: int = 4, *, prep_rows: int = 0) -> int:
-    """Shared memory of one block of the reduction kernels
-    (``cct::partial_smem_bytes`` in ``csrc/window_reduce.cuh``): the
-    layout's stages, each 32K j_win rows plus two floats and two ints per
-    observation, and for a bfloat16 j_win the float32 area it is prepared
-    into (:func:`_layout_smem_bytes`); one 32-bit mask word per 32
-    observations of a tile for each of the band's grid rows and for every
-    grid column; and the band's (rows, gw, per_knot) accumulator grid.
-    ``band_rows`` other than the plan's gives the block of such bands."""
-    layout, rows = reduction_plan(gh, gw, k, per_knot, elem_bytes,
-                                  prep_rows=prep_rows)
-    if band_rows is not None:
-        rows = band_rows
-        ring = _fits(_layout_smem_bytes(rows, gw, k, per_knot, RING,
-                                        elem_bytes, prep_rows))
-        layout = RING if ring else COMPACT
-    return _layout_smem_bytes(rows, gw, k, per_knot, layout, elem_bytes,
-                              prep_rows)
+def reduction_smem_bytes(name: str, gh: int, gw: int, k: int,
+                         band_rows: int | None = None) -> int:
+    """Shared memory of one block of reduction kernel ``name``
+    (``cct::partial_smem_bytes`` in ``csrc/window_reduce.cuh``), for either
+    element type: the stage, :func:`prep_rows` float rows of STRIDE and two
+    int rows of TILE window bases; in the owner scheme (:func:`uses_owners`)
+    the masks, WORDS words for each of the band's rows and the grid's
+    columns; and the band's accumulator of rows × gw knots.  ``band_rows``
+    other than the plan's gives the block of such bands."""
+    rows = reduction_plan(name, gh, gw, k) if band_rows is None else band_rows
+    return _band_smem_bytes(name, rows, gw, k, uses_owners(gh, gw))
 
 
-def reduction_blocks(n: int, tile: int, blocks_per_sm: int,
-                     num_sms: int) -> int:
-    """Blocks of the reduction's partial pass for N observations in tiles
-    of ``tile`` (:func:`_cuda.persistent_blocks`), in each band."""
-    return _cuda.persistent_blocks(n, tile, blocks_per_sm, num_sms)
+def widest_row(name: str, k: int) -> int:
+    """The widest grid row one block of reduction kernel ``name`` holds (a
+    band of one row); past it the plan raises."""
+    room = (_cuda.MAX_SMEM_BYTES // 4 - prep_rows(name, k) * STRIDE
+            - 2 * TILE)
+    return room // per_knot(name, k)
+
+
+def smem_blocks_per_sm(name: str, gh: int, gw: int, k: int) -> int:
+    """Blocks of reduction kernel ``name`` at this grid's band that one
+    SM's shared memory holds (each also takes the SM's per-block
+    reservation), at most as many as its threads allow; registers may
+    allow fewer (``cct_<name>_blocks_per_sm`` says how many run)."""
+    nbytes = reduction_smem_bytes(name, gh, gw, k)
+    return min(_cuda.SM_SMEM_BYTES // (nbytes + _cuda.BLOCK_RESERVED_SMEM),
+               _cuda.SM_THREADS // THREADS)
+
+
+def reduction_blocks(n: int, blocks_per_sm: int, num_sms: int,
+                     bands: int = 1) -> int:
+    """Blocks of the reduction's partial pass in each band for N
+    observations: every band's blocks resident at once (the card's
+    ``blocks_per_sm * num_sms`` shared among the bands), each block given
+    the same number of tiles but for the last few
+    (:func:`_cuda.persistent_blocks`), rounded up to whole clusters."""
+    per_band = max(1, blocks_per_sm * num_sms // bands)
+    blocks = _cuda.persistent_blocks(n, TILE, 1, per_band)
+    return -(-blocks // CLUSTER) * CLUSTER
 
 
 @functools.cache
@@ -269,31 +285,27 @@ def _counted(name, j_win):
     return name + "_bf16" if j_win.dtype == torch.bfloat16 else name
 
 
-def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, cells_per_knot,
-                      out_shape, band_rows):
+def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, out_shape,
+                      band_rows):
     n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, per_obs=per_obs)
     elem = j_win.element_size()
-    prep = prep_rows(name, k) if elem == 2 else 0
-    layout, rows = reduction_plan(gh, gw, k, cells_per_knot, elem,
-                                  prep_rows=prep)
+    rows, bands = reduction_bands(name, gh, gw, k)
     if band_rows is not None:
         if not 1 <= band_rows <= gh:
             raise ValueError(f"{name}: band_rows must be in 1..{gh}")
         rows = band_rows
-    _cuda.check_smem(reduction_smem_bytes(gh, gw, k, cells_per_knot, rows,
-                                          elem, prep_rows=prep), name)
+    _cuda.check_smem(reduction_smem_bytes(name, gh, gw, k, rows), name)
     out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
     if n == 0:
         return out.zero_()
     dev = j_win.device
-    tile, _ = layout
-    # the plan's occupancy sets the block count, so bands of other heights
-    # sum the same partial rows
+    # the plan's bands and occupancy set the block count, so bands of other
+    # heights sum the same partial rows
     nblocks = reduction_blocks(
-        n, tile, _resident_blocks(name, k, gh, gw, dev.index, elem),
-        _cuda.num_sms(dev))
-    partial = torch.empty((nblocks, gh * gw * cells_per_knot),
+        n, _resident_blocks(name, k, gh, gw, dev.index, elem),
+        _cuda.num_sms(dev), bands)
+    partial = torch.empty((nblocks // CLUSTER, gh * gw * per_knot(name, k)),
                           dtype=torch.float32, device=j_win.device)
     _cuda.launch(name, j_win.data_ptr(), base_xy.data_ptr(),
                  base_xy.stride(0), base_xy.stride(1), per_obs.data_ptr(),
@@ -307,13 +319,13 @@ def window_apply_jtw(j_win, base_xy, ws, gh, gw, k, *, band_rows=None):
 
     ``band_rows`` (kernel only): grid rows per band of the partial pass in
     place of :func:`reduction_plan`'s; the result is the same, bit for
-    bit, as long as the layout is."""
+    bit."""
     if j_win.device.type == "cpu":
         return window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k)
     if ws.shape != (j_win.shape[1], 2):
         raise ValueError("window_apply_jtw: ws must be (N, 2)")
     return _reduction_launch("window_apply_jtw", j_win, base_xy, ws, gh, gw,
-                             k, k, (gh, gw, k), band_rows)
+                             k, (gh, gw, k), band_rows)
 
 
 def window_block_diag(j_win, base_xy, w, gh, gw, k, *, band_rows=None):
@@ -324,4 +336,4 @@ def window_block_diag(j_win, base_xy, w, gh, gw, k, *, band_rows=None):
     if w.shape != (j_win.shape[1],):
         raise ValueError("window_block_diag: w must be (N,)")
     return _reduction_launch("window_block_diag", j_win, base_xy, w, gh, gw,
-                             k, k * (k + 1) // 2, (gh, gw, k, k), band_rows)
+                             k, (gh, gw, k, k), band_rows)

@@ -10,21 +10,21 @@
 //   out[by+y, bx+x, j] += sum_i j_win[i*16K + (y*4+x)*K + j, n] * ws[n, i]
 // over all observations n, for knots inside the grid.  K = 2 and K = 5 are
 // instantiated, each for a float32 and a bfloat16 j_win (the reference
-// kernel's bf16 read, :91: the CG matvecs' copies): a bf16 tile is staged
+// kernel's bf16 read, :91: the CG matvecs' copies): a bf16 tile is read
 // in half the bytes and widened to float32 as ws is folded in, so every
 // sum is float32.
 //
 // What bounds it on an H100: its least time is set by bytes, since each
 // observation's 32K j_win floats are read once (coalesced, n contiguous)
-// for 64K FLOP; on the bench problem the owner visits set the time
-// instead, because a clustered tile sends tens of observations to a few
-// knots whose owners add them one by one.  The design (window_reduce.cuh)
-// streams tiles of observations through a cp.async ring in shared memory,
-// folds ws into each staged column once (prepare: K values per window slot
-// remain), lets the owner thread of each knot add the columns its row and
-// column masks select, and sums the per-block grids in a fixed order in a
-// second small kernel: the result is the same from run to run, with no
-// atomics.
+// for 64K FLOP.  The design (window_reduce.cuh): tiles of observations
+// pass through registers, where ws is folded in (16K values an
+// observation remain), into a shared-memory stage while the tile before is
+// visited; on the bench's small grids two owner threads a knot add the
+// observations its masks select, on larger grids each of 16 warps owns one
+// slot class of knots, to which every observation adds exactly one window
+// slot; per-block grids are summed over a thread-block cluster and then
+// in a fixed order by a second small kernel: the result is the same from
+// run to run, with no atomics.
 
 #include "window_reduce.cuh"
 
@@ -34,40 +34,26 @@ template <int K>
 struct JtwOp {
   static constexpr int kPerKnot = K;
   static constexpr int kPerObs = 2;  // ws[n, 0], ws[n, 1]
-  static constexpr bool kUsesWeights = false;
+  // row (slot*K + j): j_win[0, slot, j]*ws0 + j_win[1, slot, j]*ws1
   static constexpr int kPrepRows = 16 * K;
+  static constexpr int kMinBlocks = 2;
 
-  // rows (slot*K + j) become j_win[0, slot, j]*ws0 + j_win[1, slot, j]*ws1
-  template <int S>
-  __device__ static void prepare(float* col, int slot, const float* ws) {
+  __device__ static int row(int g, int i) { return g + cct::kLoadGroups * i; }
+
+  __device__ static void store(float* stage, const float* a, const float* b,
+                               const float* ws, int p, int g) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int f = slot * K + j;
-      col[f * S] = col[f * S] * ws[0] + col[(16 * K + f) * S] * ws[1];
-    }
+    for (int i = 0; i < 2 * K; ++i)
+      stage[row(g, i) * cct::kStride + p] = a[i] * ws[0] + b[i] * ws[1];
   }
 
-  // the same from a staged bf16 column (row stride SI) into a float32
-  // column (row stride S)
-  template <int SI, int S>
-  __device__ static void prepare_from(const __nv_bfloat16* in, float* col,
-                                      int slot, const float* ws) {
+  __device__ static void contribution(float* v, const float* stage, int p,
+                                      int slot) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int f = slot * K + j;
-      col[f * S] = cct::to_float(in[f * SI]) * ws[0] +
-                   cct::to_float(in[(16 * K + f) * SI]) * ws[1];
-    }
+    for (int j = 0; j < K; ++j) v[j] = stage[(slot * K + j) * cct::kStride + p];
   }
 
-  template <int S>
-  __device__ static void accumulate(float* a, const float* col, int f0,
-                                    const float*) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) a[j] += col[(f0 + j) * S];
-  }
-
-  __device__ static void store(float* out, int knot, int r, float v) {
+  __device__ static void store_out(float* out, int knot, int r, float v) {
     out[knot * K + r] = v;
   }
 };
@@ -128,30 +114,22 @@ extern "C" int cct_window_apply_jtw_blocks_per_sm(int k, int gh, int gw,
   return 0;
 }
 
-// Shared memory of one block of the partial pass (0 for another K).
+// Shared memory of one block of the partial pass, the same for both
+// element types (0 for another K or element size).
 extern "C" long long cct_window_apply_jtw_smem_bytes(int k, int gh, int gw,
                                                      int elem_bytes) {
-  if (elem_bytes == 4) {
-    if (k == 2) return cct::partial_smem_bytes<2, JtwOp<2>, float>(gh, gw);
-    if (k == 5) return cct::partial_smem_bytes<5, JtwOp<5>, float>(gh, gw);
-  } else if (elem_bytes == 2) {
-    if (k == 2)
-      return cct::partial_smem_bytes<2, JtwOp<2>, __nv_bfloat16>(gh, gw);
-    if (k == 5)
-      return cct::partial_smem_bytes<5, JtwOp<5>, __nv_bfloat16>(gh, gw);
-  }
+  if (elem_bytes != 4 && elem_bytes != 2) return 0;
+  if (k == 2) return cct::partial_smem_bytes<JtwOp<2>>(gh, gw);
+  if (k == 5) return cct::partial_smem_bytes<JtwOp<5>>(gh, gw);
   return 0;
 }
 
-// Grid rows per band of the partial pass (0 where one row does not fit).
+// Grid rows per band of the partial pass (0 where one row does not fit),
+// the same for both element types.
 extern "C" int cct_window_apply_jtw_band_rows(int k, int gh, int gw,
                                               int elem_bytes) {
-  if (elem_bytes == 4) {
-    if (k == 2) return cct::band_rows<2, JtwOp<2>, float>(gh, gw);
-    if (k == 5) return cct::band_rows<5, JtwOp<5>, float>(gh, gw);
-  } else if (elem_bytes == 2) {
-    if (k == 2) return cct::band_rows<2, JtwOp<2>, __nv_bfloat16>(gh, gw);
-    if (k == 5) return cct::band_rows<5, JtwOp<5>, __nv_bfloat16>(gh, gw);
-  }
+  if (elem_bytes != 4 && elem_bytes != 2) return 0;
+  if (k == 2) return cct::band_rows<JtwOp<2>>(gh, gw);
+  if (k == 5) return cct::band_rows<JtwOp<5>>(gh, gw);
   return 0;
 }

@@ -12,23 +12,22 @@
 // over all observations n; the upper pairs (j <= l) are accumulated and
 // mirrored.  K = 2 and K = 5 are instantiated, each for a float32 and a
 // bfloat16 j_win (the reference kernel widens a bf16 j_win, :113, and
-// forms the products in float32).  A bf16 tile is staged in half the
-// bytes and widened, all 32K rows, into a float32 area; from there the
-// products are those of the float32 kernel on the widened values (the sums
-// split over as many blocks as the bf16 plan's occupancy gives, so the last
-// bits may differ from the float32 kernel's).  The LM step builds the
-// preconditioner from the float32 blocks, as the reference's does.
+// forms the products in float32).  A bf16 tile is read in half the bytes
+// and widened as it is stored; from there the products and the sums are
+// those of the float32 kernel on the widened values, in the same layout
+// and order, so both give the same bits where both plans take the same
+// block count.  The LM step builds the preconditioner from the float32
+// blocks, as the reference's does.
 //
 // What bounds it on an H100: its least time is set by bytes (32K j_win
-// elements read once per observation, 16 * K(K+1)/2 * 4 FLOP); on the bench
-// problem the owner visits of clustered tiles set the time, as for
-// window_apply_jtw.  The design is the deterministic two-pass window
-// reduction of window_reduce.cuh: a cp.async ring of tiles in shared
-// memory, the K(K+1)/2 weighted products of each window slot formed once
-// per observation where they fit in the slot's 2K rows (K = 2), one owner
-// thread per knot that adds the observations its row and column masks
-// select, per-block partial grids summed in a fixed order by a second
-// kernel.  No atomics.
+// elements read once per observation, 16 * K(K+1)/2 * 4 FLOP).  The design
+// is the deterministic two-pass window reduction of window_reduce.cuh:
+// tiles pass through registers into a shared-memory stage (for K = 2 the
+// K(K+1)/2 weighted products of each window slot, formed once per
+// observation; for K = 5 the 2K values of each slot and the weight, from
+// which a visit forms the products), knot owners on small grids and slot
+// classes on larger ones, per-block grids summed over a cluster and then
+// in a fixed order by a second kernel.  No atomics.
 
 #include "window_reduce.cuh"
 
@@ -38,27 +37,23 @@ template <int K>
 struct BlockDiagOp {
   static constexpr int kPerKnot = K * (K + 1) / 2;
   static constexpr int kPerObs = 1;  // w[n]
-  // Where a slot's kPerKnot products fit in its 2K rows (K <= 3), prepare
-  // writes them there; otherwise accumulate forms them from j_win and w.
+  // Where a slot's kPerKnot products take no more rows than its 2K values
+  // (K <= 3), the stage keeps the products; otherwise the values and the
+  // weight, and a visit forms the products.
   static constexpr bool kFolded = kPerKnot <= 2 * K;
-  static constexpr bool kUsesWeights = !kFolded;
-  // a bf16 tile is widened whole: the products read both halves
-  static constexpr int kPrepRows = 32 * K;
+  static constexpr int kPrepRows = kFolded ? 16 * kPerKnot : 32 * K + 1;
+  static constexpr int kMinBlocks = kFolded ? 2 : 1;
 
-  // row of product r of the slot whose rows start at f0
-  __device__ static int row(int f0, int r) {
-    return r < K ? f0 + r : 16 * K + f0 + (r - K);
+  // Folded: group g reads slots g and g + kLoadGroups, K values each;
+  // otherwise rows g, g + kLoadGroups, ...
+  __device__ static int row(int g, int i) {
+    return kFolded ? (g + cct::kLoadGroups * (i / K)) * K + i % K
+                   : g + cct::kLoadGroups * i;
   }
 
-  template <int S>
-  __device__ static void products(float* v, const float* col, int f0,
+  // the upper products (j <= l) of one slot from its values jx, jy
+  __device__ static void products(float* v, const float* jx, const float* jy,
                                   float w) {
-    float jx[K], jy[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      jx[j] = col[(f0 + j) * S];
-      jy[j] = col[(16 * K + f0 + j) * S];
-    }
     int r = 0;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -67,46 +62,49 @@ struct BlockDiagOp {
     }
   }
 
-  template <int S>
-  __device__ static void prepare(float* col, int slot, const float* w) {
-    if constexpr (kFolded) {
-      float v[kPerKnot];
-      products<S>(v, col, slot * K, w[0]);
-#pragma unroll
-      for (int r = 0; r < kPerKnot; ++r) col[row(slot * K, r) * S] = v[r];
-    }
-  }
-
-  // widen the slot's 2K rows of a staged bf16 column `in` (row stride SI)
-  // into the float32 column `col` (row stride S), then prepare them there
-  template <int SI, int S>
-  __device__ static void prepare_from(const __nv_bfloat16* in, float* col,
-                                      int slot, const float* w) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int f = slot * K + j;
-      col[f * S] = cct::to_float(in[f * SI]);
-      col[(16 * K + f) * S] = cct::to_float(in[(16 * K + f) * SI]);
-    }
-    prepare<S>(col, slot, w);
-  }
-
-  template <int S>
-  __device__ static void accumulate(float* a, const float* col, int f0,
-                                    const float* w) {
+  __device__ static void store(float* stage, const float* a, const float* b,
+                               const float* w, int p, int g) {
+    constexpr int S = cct::kStride;
     if constexpr (kFolded) {
 #pragma unroll
-      for (int r = 0; r < kPerKnot; ++r) a[r] += col[row(f0, r) * S];
+      for (int q = 0; q < 2; ++q) {
+        float v[kPerKnot];
+        products(v, a + q * K, b + q * K, w[0]);
+        const int slot = g + cct::kLoadGroups * q;
+#pragma unroll
+        for (int r = 0; r < kPerKnot; ++r)
+          stage[(slot * kPerKnot + r) * S + p] = v[r];
+      }
     } else {
-      float v[kPerKnot];
-      products<S>(v, col, f0, w[0]);
 #pragma unroll
-      for (int r = 0; r < kPerKnot; ++r) a[r] += v[r];
+      for (int i = 0; i < 2 * K; ++i) {
+        stage[row(g, i) * S + p] = a[i];
+        stage[(16 * K + row(g, i)) * S + p] = b[i];
+      }
+      if (g == 0) stage[32 * K * S + p] = w[0];
+    }
+  }
+
+  __device__ static void contribution(float* v, const float* stage, int p,
+                                      int slot) {
+    constexpr int S = cct::kStride;
+    if constexpr (kFolded) {
+#pragma unroll
+      for (int r = 0; r < kPerKnot; ++r)
+        v[r] = stage[(slot * kPerKnot + r) * S + p];
+    } else {
+      float jx[K], jy[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        jx[j] = stage[(slot * K + j) * S + p];
+        jy[j] = stage[(16 * K + slot * K + j) * S + p];
+      }
+      products(v, jx, jy, stage[32 * K * S + p]);
     }
   }
 
   // value r of a knot is the upper pair (j, l), j <= l, in row order
-  __device__ static void store(float* out, int knot, int r, float v) {
+  __device__ static void store_out(float* out, int knot, int r, float v) {
     int j = 0;
     while (r >= K - j) {
       r -= K - j;
@@ -179,30 +177,22 @@ extern "C" int cct_window_block_diag_blocks_per_sm(int k, int gh, int gw,
   return 0;
 }
 
-// Shared memory of one block of the partial pass (0 for another K).
+// Shared memory of one block of the partial pass, the same for both
+// element types (0 for another K or element size).
 extern "C" long long cct_window_block_diag_smem_bytes(int k, int gh, int gw,
                                                       int elem_bytes) {
-  if (elem_bytes == 4) {
-    if (k == 2) return cct::partial_smem_bytes<2, BlockDiagOp<2>, float>(gh, gw);
-    if (k == 5) return cct::partial_smem_bytes<5, BlockDiagOp<5>, float>(gh, gw);
-  } else if (elem_bytes == 2) {
-    if (k == 2)
-      return cct::partial_smem_bytes<2, BlockDiagOp<2>, __nv_bfloat16>(gh, gw);
-    if (k == 5)
-      return cct::partial_smem_bytes<5, BlockDiagOp<5>, __nv_bfloat16>(gh, gw);
-  }
+  if (elem_bytes != 4 && elem_bytes != 2) return 0;
+  if (k == 2) return cct::partial_smem_bytes<BlockDiagOp<2>>(gh, gw);
+  if (k == 5) return cct::partial_smem_bytes<BlockDiagOp<5>>(gh, gw);
   return 0;
 }
 
-// Grid rows per band of the partial pass (0 where one row does not fit).
+// Grid rows per band of the partial pass (0 where one row does not fit),
+// the same for both element types.
 extern "C" int cct_window_block_diag_band_rows(int k, int gh, int gw,
                                                int elem_bytes) {
-  if (elem_bytes == 4) {
-    if (k == 2) return cct::band_rows<2, BlockDiagOp<2>, float>(gh, gw);
-    if (k == 5) return cct::band_rows<5, BlockDiagOp<5>, float>(gh, gw);
-  } else if (elem_bytes == 2) {
-    if (k == 2) return cct::band_rows<2, BlockDiagOp<2>, __nv_bfloat16>(gh, gw);
-    if (k == 5) return cct::band_rows<5, BlockDiagOp<5>, __nv_bfloat16>(gh, gw);
-  }
+  if (elem_bytes != 4 && elem_bytes != 2) return 0;
+  if (k == 2) return cct::band_rows<BlockDiagOp<2>>(gh, gw);
+  if (k == 5) return cct::band_rows<BlockDiagOp<5>>(gh, gw);
   return 0;
 }

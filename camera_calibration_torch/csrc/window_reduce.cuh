@@ -7,432 +7,393 @@
 // order, so the reduction has two passes, and both sum in a fixed order:
 //
 // 1. window_partial_kernel: each block walks a fixed set of observation
-//    tiles (tile i of block b covers observations (b + i*gridDim.x)*T ...)
-//    and keeps its band's rows of the accumulator grid (band_rows*gw*R
-//    floats) in shared memory.  Per tile:
-//    - Loads in flight: tiles are staged with cp.async: 16-byte copies
-//      where every j_win row is 16-byte aligned (N a multiple of 4 floats
-//      or 8 bf16, j_win 16-byte aligned), else 4-byte copies where every
-//      row is 4-byte aligned (always for float32; bf16 needs N even and
-//      j_win 4-byte aligned), else (bf16 only) plain 2-byte loads and
-//      stores.  Where it fits, a ring of two 64-observation stages lets
-//      the next tile's j_win columns, weights and bases load while this one
-//      is reduced; grids whose accumulator leaves no room for the ring take
-//      one stage of 32 observations, which loads while the block waits (the
-//      layouts' largest grids are listed at Tile).
-//    - Candidate lists: the warps of the first T threads each own 32
-//      observations and set, with one __ballot_sync per grid row, bit p of
-//      the row's mask word iff the window of observation p covers the row
-//      (0 <= h - by < 4); the same for columns.  Meanwhile the other
-//      threads fold each observation's weights into its staged column
-//      (Op::prepare), so that a visit reads fewer values.  A float32 tile
-//      is prepared in place.  A bfloat16 tile is staged as bf16, half the
-//      bytes, and prepared into one float32 area beside the ring
-//      (Op::prepare_from; Op::kPrepRows rows), which the visits read:
-//      every sum stays float32.
-//    - Each knot has one owner thread for the tile (knot i*NT + lane*NW +
-//      warp: neighbouring knots, which a clustered tile hits together, go
-//      to different warps).  The owner visits the set bits of row mask AND
-//      column mask in increasing order, so its observations are added in
-//      tile order, with no atomics and independent of scheduling.
-//    The block's band is written to its slice of its row of the scratch
-//    array.
-//    Bands: where the whole (gh, gw, R) grid leaves no room for a stage in
-//    one block, the launch grid gets a second dimension over bands of
-//    band_rows grid rows (the fewest bands whose compact layout fits; see
-//    band_rows()).  Block (b, y) walks the same tiles as block (b, 0) and
-//    keeps only band y's rows: its row masks cover those rows, so an
-//    observation whose window misses the band is never visited, and the
-//    columns of its window slots outside the band are not prepared.  Each
-//    knot belongs to one band, so every knot's sum runs over the same
-//    tiles in the same order whatever the band count: results do not
-//    depend on it.  A grid that fits one block takes one band.
+//    tiles (tile i of block b covers observations (b + i*gridDim.x)*kTile
+//    ...) and keeps its band's rows of the accumulator grid.
+//    - Tiles through registers.  While a tile is visited, every thread
+//      has its loads of the next tile in flight: the 32K j_win rows of one
+//      observation (of kLoadGroups) in pairs (f, 16K + f), its per-
+//      observation floats and its window base.  After the visits it
+//      writes them prepared (Op::store) into the one float32 stage: JtW
+//      folds ws in (16K rows), the K = 2 block diagonal its products
+//      (48 rows), the K = 5 one keeps the 32K values and the weight.  A
+//      bf16 j_win is read in half the bytes and widened there: every sum
+//      is float32, and both element types share one layout.
+//    - Who adds what where is one of two visit schemes, chosen by grid
+//      (use_owners()), since each is faster on one side of kOwnerKnots:
+//      - Knot owners (grids of at most kOwnerKnots knots, the bench's
+//        16x16).  Each knot has two owner threads, one for each 32
+//        observations of a tile, which keep its sums in registers for the
+//        whole walk.  Per tile the first two warps set, with one
+//        __ballot_sync per grid row and per grid column, bit p of the
+//        row's (column's) mask word iff the window of observation p
+//        covers it; an owner visits the set bits of its row mask AND
+//        column mask in increasing order.  On a small grid a tile's 64
+//        observations fall on few knots, which the owners take in
+//        registers.  The two halves are added in a fixed order at the end.
+//      - Slot classes (larger grids).  Knot (h, w) of a band starting at
+//        row h0 belongs to class (a, c) = ((h - h0) & 3, w & 3).  A 4x4
+//        window holds exactly one knot of each class, so observation p
+//        adds exactly one window slot, (y, x) = ((a - (by - h0)) & 3,
+//        (c - bx) & 3), to class (a, c).  Warp a + 4c of the 16 owns class
+//        (a, c): it takes the tile's observations 32 at a time, one a lane,
+//        and adds each one's slot to its class knot.  Lanes whose knots
+//        coincide (__match_any_sync) pass their values to the lowest of
+//        them (__shfl_sync), which adds them in lane order and then to the
+//        knot.  A tile costs the same whatever the grid: no mask or knot
+//        scan, and no warp idles on a clustered tile.  The accumulator is
+//        laid out class by class, each class's knots row by row
+//        ((h - h0) >> 2, w >> 2): a warp's neighbouring knots sit in
+//        neighbouring words.
+//      Either way every knot's sum runs in an order fixed by the data
+//      alone, with no atomics.
+//    - Bands.  Where the whole (gh, gw) grid leaves no room in one block,
+//      the launch grid's second dimension runs over bands of band_rows
+//      grid rows (the fewest bands that fit; band_rows()).  Block (b, y)
+//      walks the same tiles as block (b, 0) and keeps band y's rows; an
+//      observation whose knot lies outside the band adds nothing there.
+//      The persistent grid holds every band's blocks at once, so the
+//      blocks of one tile sequence read it from device memory about
+//      together.  Each knot belongs to one band, so its sum runs over the
+//      same tiles in the same order whatever the band height.
+//    - Clusters.  The kCluster blocks of a thread-block cluster (along x)
+//      sum their accumulators in rank order over distributed shared
+//      memory and write one partial row: gridDim.x / kCluster rows.
 // 2. window_sum_kernel: a block of kSumWarps warps takes 32 consecutive
 //    output values; warp y sums rows y, y + kSumWarps, ... in order, and
 //    warp 0 adds the kSumWarps sums in warp order.
 //
-// Results are bit-identical from run to run for a given nblocks.  Every
-// knot is visited once per tile (2 * kWords mask loads), so finding the
-// candidates costs gh*gw visits per tile, not gh*gw*T tests.  What
-// bounds the visits is SIMT use on clustered tiles: the few owners of hot
-// knots add tens of observations each while the rest of their warps idle.
+// Results are bit-identical from run to run for a given block count,
+// which the plan sets from the occupancy at the plan's band height: bands
+// of another height give the same bits.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-#include <cstdint>
-#include <type_traits>
 
 #include "element.cuh"
 
 namespace cct {
 
-// The tile layout of a partial-pass block for j_win elements of type E
-// (float or __nv_bfloat16).  kRing: two stages of 64 observations, one
-// loading while one is reduced.  Otherwise (compact): one stage of 32.
-// Largest square grids of one float32 block (227 KB) in one band, ring /
-// compact: K=2 JtW 155 / 166, block diagonal 127 / 135; K=5 JtW 84 / 102,
-// block diagonal 48 / 58.  Past those the grid is split into bands of rows
-// (band_rows()).
-template <int K, bool kRing, class E>
-struct Tile {
-  // Observations per tile (32 per mask word).  Small tiles keep four
-  // blocks (32 warps) on an SM, enough to hide the latency of the owner
-  // visits.
-  static constexpr int kObs = kRing ? 64 : 32;
-  // Threads per block of the partial pass: the first kObs build the masks,
-  // the rest prepare the columns; all own knots.
-  static constexpr int kThreads = 256;
-  // Row stride, in floats, of the prepared (float32) j_win rows: rows stay
-  // 16-byte aligned for cp.async and start 4 banks apart.
-  static constexpr int kStride = kObs + 4;
-  // Whether staged rows are bf16 and prepared into a float32 area apart
-  // (prep_floats).
-  static constexpr bool kWiden = !std::is_same<E, float>::value;
-  // Row stride, in elements, of the staged j_win rows (16-byte aligned).
-  static constexpr int kStrideE = kWiden ? kObs + 8 : kStride;
-  // Tiles in shared memory at once.
-  static constexpr int kStages = kRing ? 2 : 1;
-  // Mask words per grid row or column.
-  static constexpr int kWords = kObs / 32;
-  // The staged j_win rows of one stage, in floats.
-  static constexpr int kRowsFloats =
-      32 * K * kStrideE * static_cast<int>(sizeof(E)) / 4;
-  // One stage: 32K j_win rows, two per-observation floats, two base ints.
-  static constexpr int kStageFloats = kRowsFloats + 4 * kObs;
-};
+namespace cgrp = cooperative_groups;
 
-// The float32 area a bf16 tile is prepared into: the Op::kPrepRows rows
-// that the visits read (JtW: its 16K prepared values; the block diagonal:
-// all 32K rows widened).  None for a float32 tile.
-template <class Tl, class Op>
-constexpr int prep_floats = Tl::kWiden ? Op::kPrepRows * Tl::kStride : 0;
-
+// Observations per tile.
+constexpr int kTile = 64;
+// Mask words per grid row or column in the owner scheme.
+constexpr int kWords = kTile / 32;
+// Threads per block of the partial pass: one warp per slot class.
+constexpr int kThreads = 512;
+constexpr int kClassWarps = kThreads / 32;
+static_assert(kClassWarps == 16, "one warp per slot class");
+// Threads that load one observation of a tile, each a share of its rows.
+constexpr int kLoadGroups = kThreads / kTile;
+// Row stride of the stage, in floats.
+constexpr int kStride = kTile + 1;
+// Blocks of a cluster, which reduce their accumulators into one partial
+// row.
+constexpr int kCluster = 2;
 // Warps per block of the sum pass.
 constexpr int kSumWarps = 16;
-
+// Grids of at most this many knots take the owner scheme: two owner
+// threads a knot.
+constexpr int kOwnerKnots = kThreads / kWords;
 // Shared memory one block may use on Hopper (227 KB).
 constexpr size_t kMaxSmemBytes = 232448;
 
-// Shared memory of one partial-pass block in a layout: the stages, a bf16
-// tile's float32 area, the row and column masks ((gh + gw) * kWords
-// words), the accumulator grid of Op::kPerKnot values a knot.
-template <int K, class Op, bool kRing, class E>
-inline size_t layout_smem_bytes(int gh, int gw) {
-  using Tl = Tile<K, kRing, E>;
+// Whether a grid takes the owner scheme.
+inline bool use_owners(int gh, int gw) {
+  return static_cast<long long>(gh) * gw <= kOwnerKnots;
+}
+
+// Shared memory of one partial-pass block that keeps `rows` grid rows: the
+// stage (Op::kPrepRows float rows of kStride, two int rows of kTile bases),
+// in the owner scheme the row and column masks ((rows + gw) * kWords
+// words), and the accumulator (rows * gw * Op::kPerKnot floats).
+template <class Op>
+inline size_t band_smem_bytes(int rows, int gw, bool owners) {
   return sizeof(float) *
-         (static_cast<size_t>(Tl::kStages) * Tl::kStageFloats +
-          prep_floats<Tl, Op> + static_cast<size_t>(gh + gw) * Tl::kWords +
-          static_cast<size_t>(gh) * gw * Op::kPerKnot);
+         (static_cast<size_t>(Op::kPrepRows) * kStride + 2 * kTile +
+          (owners ? static_cast<size_t>(rows + gw) * kWords : 0) +
+          static_cast<size_t>(rows) * gw * Op::kPerKnot);
 }
 
-// The ring wherever it fits in one block.
-template <int K, class Op, class E>
-inline bool use_ring(int gh, int gw) {
-  return layout_smem_bytes<K, Op, true, E>(gh, gw) <= kMaxSmemBytes;
+// Of n rows (or columns) 0..n-1, those of class a (i & 3 == a).
+__device__ __forceinline__ int class_count(int n, int a) {
+  return (n - a + 3) >> 2;
 }
 
-// Shared memory of one partial-pass block that keeps `rows` grid rows, in
-// the layout it takes there.
-template <int K, class Op, class E>
-inline size_t band_smem_bytes(int rows, int gw) {
-  return use_ring<K, Op, E>(rows, gw)
-             ? layout_smem_bytes<K, Op, true, E>(rows, gw)
-             : layout_smem_bytes<K, Op, false, E>(rows, gw);
+// Of n rows (or columns), those of the classes before a.
+__device__ __forceinline__ int classes_before(int n, int a) {
+  return a * (n >> 2) + min(a, n & 3);
 }
 
-// Rows per band: ceil(gh / nb) for the fewest bands nb whose compact layout
-// fits one block; gh where the whole grid fits.  0 where one grid row does
-// not fit.  Mirrored by reduction_plan in ba/window_cuda.py.
-template <int K, class Op, class E>
+// First knot of class (a, c) in the accumulator of a band of hb rows:
+// classes in order a-major, each class's knots row by row.
+__device__ __forceinline__ int class_offset(int hb, int gw, int a, int c) {
+  return classes_before(hb, a) * gw +
+         class_count(hb, a) * classes_before(gw, c);
+}
+
+// Rows per band: ceil(gh / nb) for the fewest bands nb that fit one block;
+// gh where the whole grid fits (always in the owner scheme).  0 where one
+// grid row does not fit.  Mirrored by reduction_plan in ba/window_cuda.py.
+template <class Op>
 inline int band_rows(int gh, int gw) {
+  const bool owners = use_owners(gh, gw);
   for (int nb = 1; nb <= gh; ++nb) {
     const int rows = (gh + nb - 1) / nb;
-    if (layout_smem_bytes<K, Op, false, E>(rows, gw) <= kMaxSmemBytes)
-      return rows;
+    if (band_smem_bytes<Op>(rows, gw, owners) <= kMaxSmemBytes) return rows;
   }
   return 0;
 }
 
-// Shared memory of one partial-pass block at this grid (its band's rows, in
-// its layout; one row in the compact layout where even that does not fit).
-// Mirrored by reduction_smem_bytes in ba/window_cuda.py.
-template <int K, class Op, class E>
+// Shared memory of one partial-pass block at this grid (its band's rows;
+// one row where even that does not fit).  Mirrored by
+// reduction_smem_bytes in ba/window_cuda.py.
+template <class Op>
 inline size_t partial_smem_bytes(int gh, int gw) {
-  const int rows = band_rows<K, Op, E>(gh, gw);
-  return rows > 0 ? band_smem_bytes<K, Op, E>(rows, gw)
-                  : layout_smem_bytes<K, Op, false, E>(1, gw);
-}
-
-__device__ __forceinline__ unsigned shared_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes to shared memory, the first `bytes` of them from global memory
-// and the rest zero.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   shared_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   shared_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most kPending committed groups of this thread are still in
-// flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// How a tile's j_win rows are copied: 16-byte cp.async copies where every
-// row is 16-byte aligned, 4-byte ones where every row is 4-byte aligned,
-// else plain loads and stores of single elements (bf16 only).
-enum StageMode { kCopy16 = 2, kCopy4 = 1, kScalar = 0 };
-
-template <class E>
-__device__ __forceinline__ int stage_mode(const E* jwin, int n_obs) {
-  constexpr int V16 = 16 / static_cast<int>(sizeof(E));
-  constexpr int V4 = 4 / static_cast<int>(sizeof(E));
-  const uintptr_t a = reinterpret_cast<uintptr_t>(jwin);
-  if (n_obs % V16 == 0 && (a & 15) == 0) return kCopy16;
-  if (n_obs % V4 == 0 && (a & 3) == 0) return kCopy4;
-  return kScalar;
-}
-
-// Start the copies of the tile at `start` into stage `st`: j_win rows
-// (kStrideE elements apart), then kPerObs floats per observation, then the
-// bx and by rows.  Observations past n_obs are not copied.  A bf16 tile
-// holds an even count in kCopy4 (N is even there and tiles start at
-// multiples of 32), so its pairs never straddle the end.
-template <class Tl, int K, int kPerObs, class E>
-__device__ __forceinline__ void stage_tile(float* st, const E* jwin,
-                                           const int* base, int base_sn,
-                                           int base_sc, const float* per_obs,
-                                           int n_obs, int start, int mode) {
-  constexpr int T = Tl::kObs;
-  constexpr int NT = Tl::kThreads;
-  constexpr int SE = Tl::kStrideE;
-  constexpr int F = 32 * K;
-  constexpr int EB = static_cast<int>(sizeof(E));
-  const size_t N = static_cast<size_t>(n_obs);
-  const int count = min(T, n_obs - start);
-  const int t = threadIdx.x;
-  E* rows = reinterpret_cast<E*>(st);
-  if (mode == kCopy16) {
-    constexpr int V = 16 / EB;  // elements per 16-byte chunk
-    constexpr int C = T / V;    // chunks per row
-    for (int c = t; c < F * C; c += NT) {
-      const int f = c / C;
-      const int q = (c - f * C) * V;
-      const int left = count - q;
-      if (left > 0)
-        cp_async16(rows + f * SE + q, jwin + f * N + start + q,
-                   min(left, V) * EB);
-    }
-  } else if (mode == kCopy4) {
-    constexpr int V = 4 / EB;  // elements per 4-byte copy
-    constexpr int C = T / V;
-    for (int c = t; c < F * C; c += NT) {
-      const int f = c / C;
-      const int p = (c - f * C) * V;
-      if (p < count) cp_async4(rows + f * SE + p, jwin + f * N + start + p);
-    }
-  } else {
-    for (int c = t; c < F * T; c += NT) {
-      const int f = c / T;
-      const int p = c - f * T;
-      if (p < count) rows[f * SE + p] = jwin[f * N + start + p];
-    }
-  }
-  float* sp = st + Tl::kRowsFloats;
-  const float* po = per_obs + static_cast<size_t>(start) * kPerObs;
-  for (int i = t; i < kPerObs * count; i += NT) cp_async4(sp + i, po + i);
-  if (t < count) {
-    int* sb = reinterpret_cast<int*>(sp + 2 * T);
-    const int* b = base + static_cast<size_t>(start + t) * base_sn;
-    cp_async4(sb + t, b);
-    cp_async4(sb + T + t, b + base_sc);
-  }
+  const int rows = band_rows<Op>(gh, gw);
+  return band_smem_bytes<Op>(rows > 0 ? rows : 1, gw, use_owners(gh, gw));
 }
 
 // Op supplies
 // - kPerKnot: values per knot; kPerObs: floats per observation in per_obs
-//   (at most 2); kUsesWeights: whether accumulate reads them; kPrepRows:
-//   the float32 rows of a column that prepare_from writes;
-// - prepare<S>(col, slot, ws): rewrites in place the rows of window slot
-//   `slot` (0..15) of one observation's staged float32 column (col points
-//   at it, row stride S) so that accumulate reads fewer values;
-// - for a bf16 j_win, prepare_from<SI, S>(in, col, slot, ws): the same
-//   from the staged bf16 column `in` (row stride SI) into the float32
-//   column `col` (row stride S), within its first kPrepRows rows;
-// - accumulate<S>(a, col, f0, ws): adds the observation's prepared
-//   contribution to window slot f0 / K (f0 = (y*4 + x)*K) to a[kPerKnot];
-// - store(out, knot, r, v): writes value r of a knot to the output.
-template <int K, class Op, bool kRing, class E>
-__global__ void __launch_bounds__(Tile<K, kRing, E>::kThreads)
+//   (at most 2); kPrepRows: float rows of one observation in the stage;
+//   kMinBlocks: the blocks per SM its registers are bounded for;
+// - row(g, i): the row f of the i-th of the 2K pairs (f, 16K + f) of
+//   j_win rows that load group g (0..kLoadGroups-1) reads;
+// - store(stage, a, b, w, p, g): writes observation p's prepared rows
+//   from group g's pairs (a[i], b[i]) and its per-observation floats w;
+// - contribution(v, stage, p, slot): observation p's kPerKnot values for
+//   window slot `slot` (y*4 + x);
+// - store_out(out, knot, r, v): writes value r of a knot to the output.
+template <int K, class Op, class E, bool kOwners>
+__global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
 window_partial_kernel(const E* __restrict__ jwin,
                       const int* __restrict__ base, int base_sn, int base_sc,
                       const float* __restrict__ per_obs, int n_obs, int gh,
                       int gw, int band_rows, float* __restrict__ partial) {
-  using Tl = Tile<K, kRing, E>;
-  constexpr int T = Tl::kObs;
-  constexpr int NT = Tl::kThreads;
-  constexpr int NW = NT / 32;
-  constexpr int S = Tl::kStride;
-  constexpr int P = Tl::kStages;
-  constexpr int Q = Tl::kStageFloats;
-  constexpr int W = Tl::kWords;
+  constexpr int T = kTile;
+  constexpr int NT = kThreads;
+  constexpr int S = kStride;
   constexpr int R = Op::kPerKnot;
-  static_assert(Op::kPerObs <= 2, "a stage holds two floats per observation");
-  static_assert(NT > T, "threads past the first kObs prepare the columns");
+  constexpr int NP = 2 * K;  // row pairs a thread loads
+  constexpr int kObsBatches = T / 32;
+  static_assert(16 * K == kLoadGroups * NP, "every row pair has a loader");
   extern __shared__ __align__(16) float smem[];
+  float* stage = smem;
+  int* sbx = reinterpret_cast<int*>(stage + Op::kPrepRows * S);
+  int* sby = sbx + T;
+  // owner scheme: the masks of the band's rows and of the grid's columns
+  unsigned* rowm = reinterpret_cast<unsigned*>(sby + T);
+  unsigned* colm = rowm + (kOwners ? band_rows * kWords : 0);
+  float* acc = reinterpret_cast<float*>(colm + (kOwners ? gw * kWords : 0));
   // this block's band: grid rows h0 .. h0 + hb - 1
   const int h0 = blockIdx.y * band_rows;
   const int hb = min(band_rows, gh - h0);
-  const int knots = hb * gw;
-  float* ring = smem;
-  // a bf16 tile's prepared float32 rows (none for float32 tiles)
-  float* prep = ring + P * Q;
-  unsigned* rowm = reinterpret_cast<unsigned*>(prep + prep_floats<Tl, Op>);
-  unsigned* colm = rowm + band_rows * W;
-  float* acc = reinterpret_cast<float*>(colm + gw * W);
-  for (int i = threadIdx.x; i < knots * R; i += NT) acc[i] = 0.0f;
-
+  const int t = threadIdx.x;
   const int ntiles = (n_obs + T - 1) / T;
   const int b = blockIdx.x;
   const int mine = b < ntiles ? (ntiles - 1 - b) / gridDim.x + 1 : 0;
-  const int mode = stage_mode(jwin, n_obs);
+  const size_t N = static_cast<size_t>(n_obs);
+  // this thread loads observation lp of each tile, pairs of group lg
+  const int lp = t % T;
+  const int lg = t / T;
+  E ra[NP], rb[NP];
+  float rw[Op::kPerObs];
+  int rbx = 0, rby = 0;
+  auto load_tile = [&](int start) {
+    // an observation past the end reads observation 0: it is never visited
+    const size_t n = start + lp < n_obs ? static_cast<size_t>(start + lp) : 0;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int f = Op::row(lg, i);
+      ra[i] = jwin[f * N + n];
+      rb[i] = jwin[(16 * K + f) * N + n];
+    }
+#pragma unroll
+    for (int c = 0; c < Op::kPerObs; ++c) rw[c] = per_obs[n * Op::kPerObs + c];
+    if (lg == 0) {
+      rbx = base[n * base_sn];
+      rby = base[n * base_sn + base_sc];
+    }
+  };
+  auto store_tile = [&]() {
+    float a[NP], bb[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      a[i] = to_float(ra[i]);
+      bb[i] = to_float(rb[i]);
+    }
+    Op::store(stage, a, bb, rw, lp, lg);
+    if (lg == 0) {
+      sbx[lp] = rbx;
+      sby[lp] = rby;
+    }
+  };
   auto tile_start = [&](int i) {
     return (b + i * static_cast<int>(gridDim.x)) * T;
   };
-  for (int i = 0; i < P - 1; ++i) {
-    if (i < mine)
-      stage_tile<Tl, K, Op::kPerObs>(ring + i * Q, jwin, base, base_sn,
-                                     base_sc, per_obs, n_obs, tile_start(i),
-                                     mode);
-    cp_async_commit();
-  }
+  if (mine > 0) load_tile(tile_start(0));
+  if constexpr (!kOwners)
+    for (int i = t; i < hb * gw * R; i += NT) acc[i] = 0.0f;
+  if (mine > 0) store_tile();
+  __syncthreads();
 
-  const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int first_knot = lane * NW + warp;
+  // slot classes: this warp's class, rows h - h0 = ca, columns w = cc
+  // (mod 4)
+  const int ca = warp & 3;
+  const int cc = warp >> 2;
+  const int ccols = class_count(gw, cc);
+  const unsigned lower = (1u << lane) - 1u;
+  float* cacc = acc + class_offset(hb, gw, ca, cc) * R;
+  // owners: this thread's knot (neighbouring knots on other warps) and its
+  // half of each tile's observations; its sums
+  const int own = lane * (kClassWarps / kWords) + warp % (kClassWarps / kWords);
+  const int half = warp / (kClassWarps / kWords);
+  float a[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) a[j] = 0.0f;
   for (int i = 0; i < mine; ++i) {
-    if constexpr (P == 1) {
-      __syncthreads();  // tile i - 1 and the masks are consumed
-      stage_tile<Tl, K, Op::kPerObs>(ring, jwin, base, base_sn, base_sc,
-                                     per_obs, n_obs, tile_start(i), mode);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();  // everyone's copies of tile i have landed
-    } else {
-      cp_async_wait<P - 2>();  // this thread's copies of tile i have landed
-      __syncthreads();  // everyone's have; tile i - 1 and the masks are consumed
-      if (i + P - 1 < mine)
-        stage_tile<Tl, K, Op::kPerObs>(ring + ((i + P - 1) % P) * Q, jwin,
-                                       base, base_sn, base_sc, per_obs, n_obs,
-                                       tile_start(i + P - 1), mode);
-      cp_async_commit();
-    }
-
-    float* sj = ring + (i % P) * Q;
-    const float* sp = sj + Tl::kRowsFloats;
-    int* sb = reinterpret_cast<int*>(sj + Tl::kRowsFloats + 2 * T);
-    // the prepared float32 columns that the visits read
-    const float* cols = Tl::kWiden ? prep : sj;
+    if (i + 1 < mine) load_tile(tile_start(i + 1));
     const int count = min(T, n_obs - tile_start(i));
-    if (t < T) {
-      // masks of this warp's 32 observations; then sb[p] becomes the
-      // observation's slot offset (by*4 + bx)*K
-      const bool valid = t < count;
-      const int bx = valid ? sb[t] : 0;
-      const int by = valid ? sb[T + t] : 0;
-      for (int h = 0; h < hb; ++h) {
-        const unsigned m = __ballot_sync(
-            0xffffffffu, valid && static_cast<unsigned>(h0 + h - by) < 4u);
-        if (lane == (h & 31)) rowm[h * W + warp] = m;
+    if constexpr (kOwners) {
+      if (t < T) {
+        // masks of this warp's 32 observations
+        const bool valid = t < count;
+        const int bx = sbx[t];
+        const int by = sby[t];
+        for (int h = 0; h < hb; ++h) {
+          const unsigned m = __ballot_sync(
+              0xffffffffu, valid && static_cast<unsigned>(h0 + h - by) < 4u);
+          if (lane == (h & 31)) rowm[h * kWords + warp] = m;
+        }
+        for (int w = 0; w < gw; ++w) {
+          const unsigned m = __ballot_sync(
+              0xffffffffu, valid && static_cast<unsigned>(w - bx) < 4u);
+          if (lane == (w & 31)) colm[w * kWords + warp] = m;
+        }
       }
-      for (int w = 0; w < gw; ++w) {
-        const unsigned m = __ballot_sync(
-            0xffffffffu, valid && static_cast<unsigned>(w - bx) < 4u);
-        if (lane == (w & 31)) colm[w * W + warp] = m;
+      __syncthreads();  // the masks are set
+      if (own < hb * gw) {
+        const int kh = own / gw;
+        const int kw = own - kh * gw;
+        for (unsigned m = rowm[kh * kWords + half] & colm[kw * kWords + half];
+             m; m &= m - 1u) {
+          const int p = half * 32 + __ffs(static_cast<int>(m)) - 1;
+          float v[R];
+          Op::contribution(v, stage, p,
+                           (h0 + kh - sby[p]) * 4 + (kw - sbx[p]));
+#pragma unroll
+          for (int j = 0; j < R; ++j) a[j] += v[j];
+        }
       }
-      if (valid) sb[t] = (by * 4 + bx) * K;
     } else {
-      const int* sby = sb + T;
-      for (int j = t - T; j < 16 * T; j += NT - T) {
-        const int p = j % T;
-        const int slot = j / T;
-        // slots whose grid row is outside the band are never read
-        if (p < count &&
-            static_cast<unsigned>(sby[p] + slot / 4 - h0) < static_cast<unsigned>(hb)) {
-          if constexpr (Tl::kWiden)
-            Op::template prepare_from<Tl::kStrideE, S>(
-                reinterpret_cast<const E*>(sj) + p, prep + p, slot,
-                sp + p * Op::kPerObs);
-          else
-            Op::template prepare<S>(sj + p, slot, sp + p * Op::kPerObs);
+      for (int q = 0; q < kObsBatches; ++q) {
+        const int p = q * 32 + lane;
+        const int bx = sbx[p];
+        const int by = sby[p] - h0;  // within the band
+        const int y = (ca - by) & 3;
+        const int x = (cc - bx) & 3;
+        const int h = by + y;
+        const int w = bx + x;
+        const bool valid =
+            p < count && static_cast<unsigned>(h) < static_cast<unsigned>(hb) &&
+            static_cast<unsigned>(w) < static_cast<unsigned>(gw);
+        // the class knot, or a key of this lane alone
+        const int key = valid ? (h >> 2) * ccols + (w >> 2) : -1 - lane;
+        const unsigned same = __match_any_sync(0xffffffffu, key);
+        const int rank = __popc(same & lower);
+        const int rounds = __reduce_max_sync(0xffffffffu, rank);
+        float v[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) v[j] = 0.0f;
+        if (valid) Op::contribution(v, stage, p, y * 4 + x);
+        // the lowest lane of each group adds the others' values in lane
+        // order, then the group's knot takes that sum
+        unsigned rest = same & (same - 1u);
+        for (int r = 0; r < rounds; ++r) {
+          const int src = rest ? __ffs(static_cast<int>(rest)) - 1 : lane;
+          rest &= rest - 1u;
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float o = __shfl_sync(0xffffffffu, v[j], src);
+            if (rank == 0 && src != lane) v[j] += o;
+          }
         }
+        if (valid && rank == 0) {
+          float* ak = cacc + key * R;
+#pragma unroll
+          for (int j = 0; j < R; ++j) ak[j] += v[j];
+        }
+        __syncwarp();
       }
     }
-    __syncthreads();
-
-    for (int knot = first_knot; knot < knots; knot += NT) {
-      const int h = knot / gw;
-      const int w = knot - h * gw;
-      unsigned hit[W];
-      unsigned any = 0u;
-#pragma unroll
-      for (int q = 0; q < W; ++q) {
-        hit[q] = rowm[h * W + q] & colm[w * W + q];
-        any |= hit[q];
-      }
-      if (!any) continue;
-      const int hw = ((h0 + h) * 4 + w) * K;
-      float a[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = acc[knot * R + r];
-#pragma unroll
-      for (int q = 0; q < W; ++q) {
-        for (unsigned m = hit[q]; m; m &= m - 1u) {
-          const int p = q * 32 + __ffs(static_cast<int>(m)) - 1;
-          float ws[Op::kPerObs];
-#pragma unroll
-          for (int c = 0; c < Op::kPerObs; ++c)
-            ws[c] = Op::kUsesWeights ? sp[p * Op::kPerObs + c] : 0.0f;
-          Op::template accumulate<S>(a, cols + p, hw - sb[p], ws);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[knot * R + r] = a[r];
-    }
+    __syncthreads();  // tile i is consumed
+    if (i + 1 < mine) store_tile();
+    __syncthreads();  // tile i + 1 is in the stage
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* row = partial + (static_cast<size_t>(b) * gh + h0) * gw * R;
-  for (int i = t; i < knots * R; i += NT) row[i] = acc[i];
+  if constexpr (kOwners) {
+    // the two halves of each knot, in order, into the accumulator (the
+    // second half's sums pass through the stage, which is free now)
+    if (half == 1 && own < hb * gw)
+#pragma unroll
+      for (int j = 0; j < R; ++j) stage[own * R + j] = a[j];
+    __syncthreads();
+    if (half == 0 && own < hb * gw)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[own * R + j] = a[j] + stage[own * R + j];
+  }
+
+  // The cluster's accumulators, summed in rank order into its partial row.
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  cluster.sync();
+  const int crank = static_cast<int>(cluster.block_rank());
+  float* row = partial +
+               (static_cast<size_t>(b / kCluster) * gh + h0) * gw * R;
+  const float* accs[kCluster];
+#pragma unroll
+  for (int k = 0; k < kCluster; ++k) accs[k] = cluster.map_shared_rank(acc, k);
+  // kBatch values a thread at a time, their loads all in flight
+  constexpr int kBatch = 8;
+  constexpr int kStep = kCluster * NT;
+  const int total = hb * gw * R;
+  for (int i0 = crank * NT + t; i0 < total; i0 += kBatch * kStep) {
+    float s[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kStep;
+      s[u] = 0.0f;
+      if (i < total) {
+        int idx = i;
+        if constexpr (!kOwners) {
+          const int knot = i / R;
+          const int hr = knot / gw;
+          const int w = knot - hr * gw;
+          idx = (class_offset(hb, gw, hr & 3, w & 3) +
+                 (hr >> 2) * class_count(gw, w & 3) + (w >> 2)) * R +
+                i - knot * R;
+        }
+#pragma unroll
+        for (int k = 0; k < kCluster; ++k) s[u] += accs[k][idx];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kStep < total) row[i0 + u * kStep] = s[u];
+  }
+  cluster.sync();  // no block leaves while another reads its accumulator
 }
 
-// out = the sum of the nblocks partial rows; Op::store writes value r of
+// out = the sum of the partial rows; Op::store_out writes value r of
 // knot k into the output layout.  Block (32, kSumWarps) takes 32
 // consecutive values: warp y sums rows y, y + kSumWarps, ... in order,
 // then warp 0 adds the kSumWarps sums in warp order.
 template <class Op>
 __global__ void __launch_bounds__(32 * kSumWarps)
-window_sum_kernel(const float* __restrict__ partial, int nblocks, int knots,
+window_sum_kernel(const float* __restrict__ partial, int nrows, int knots,
                   float* __restrict__ out) {
   constexpr int R = Op::kPerKnot;
   __shared__ float sums[kSumWarps][33];
@@ -441,7 +402,7 @@ window_sum_kernel(const float* __restrict__ partial, int nblocks, int knots,
   float s = 0.0f;
   if (i < cols) {
 #pragma unroll 4
-    for (int r = threadIdx.y; r < nblocks; r += kSumWarps)
+    for (int r = threadIdx.y; r < nrows; r += kSumWarps)
       s += partial[static_cast<size_t>(r) * cols + i];
   }
   sums[threadIdx.y][threadIdx.x] = s;
@@ -450,28 +411,29 @@ window_sum_kernel(const float* __restrict__ partial, int nblocks, int knots,
     float t = sums[0][threadIdx.x];
 #pragma unroll
     for (int y = 1; y < kSumWarps; ++y) t += sums[y][threadIdx.x];
-    Op::store(out, i / R, i % R, t);
+    Op::store_out(out, i / R, i % R, t);
   }
 }
 
-template <int K, class Op, bool kRing, class E>
+template <int K, class Op, class E, bool kOwners>
 cudaError_t set_partial_smem(int rows, int gw, size_t* smem) {
-  *smem = layout_smem_bytes<K, Op, kRing, E>(rows, gw);
+  *smem = band_smem_bytes<Op>(rows, gw, kOwners);
+  if (*smem > kMaxSmemBytes) return cudaErrorInvalidValue;
   if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(window_partial_kernel<K, Op, kRing, E>,
+  return cudaFuncSetAttribute(window_partial_kernel<K, Op, E, kOwners>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
-template <int K, class Op, bool kRing, class E>
+template <int K, class Op, class E, bool kOwners>
 int blocks_per_sm(int rows, int gw) {
   size_t smem = 0;
-  if (set_partial_smem<K, Op, kRing, E>(rows, gw, &smem) != cudaSuccess)
+  if (set_partial_smem<K, Op, E, kOwners>(rows, gw, &smem) != cudaSuccess)
     return 0;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, window_partial_kernel<K, Op, kRing, E>,
-          Tile<K, kRing, E>::kThreads, smem) != cudaSuccess)
+          &blocks, window_partial_kernel<K, Op, E, kOwners>, kThreads,
+          smem) != cudaSuccess)
     return 0;
   return blocks;
 }
@@ -480,49 +442,63 @@ int blocks_per_sm(int rows, int gw) {
 // none does).
 template <int K, class Op, class E>
 int window_reduce_blocks_per_sm(int gh, int gw) {
-  const int rows = band_rows<K, Op, E>(gh, gw);
+  const int rows = band_rows<Op>(gh, gw);
   if (rows == 0) return 0;
-  return use_ring<K, Op, E>(rows, gw)
-             ? blocks_per_sm<K, Op, true, E>(rows, gw)
-             : blocks_per_sm<K, Op, false, E>(rows, gw);
+  return use_owners(gh, gw) ? blocks_per_sm<K, Op, E, true>(rows, gw)
+                            : blocks_per_sm<K, Op, E, false>(rows, gw);
 }
 
-template <int K, class Op, bool kRing, class E>
+template <int K, class Op, class E, bool kOwners>
 cudaError_t launch_partial(const E* jwin, const int* base, int base_sn,
                            int base_sc, const float* per_obs, int n, int gh,
                            int gw, int rows, float* partial, int nblocks,
                            cudaStream_t stream) {
   size_t smem = 0;
-  const cudaError_t err = set_partial_smem<K, Op, kRing, E>(rows, gw, &smem);
+  const cudaError_t err =
+      set_partial_smem<K, Op, E, kOwners>(rows, gw, &smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nblocks, (gh + rows - 1) / rows);
-  window_partial_kernel<K, Op, kRing, E>
-      <<<grid, Tile<K, kRing, E>::kThreads, smem, stream>>>(
-          jwin, base, base_sn, base_sc, per_obs, n, gh, gw, rows, partial);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nblocks, (gh + rows - 1) / rows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, window_partial_kernel<K, Op, E, kOwners>,
+                            jwin, base, base_sn, base_sc, per_obs, n, gh, gw,
+                            rows, partial);
 }
 
 // `rows`: grid rows per band (band_rows() unless a caller asks for
-// narrower bands; the results are the same).
+// narrower bands; the results are the same).  `nblocks`: blocks per band,
+// a multiple of kCluster; `partial` holds nblocks / kCluster rows of
+// gh * gw * Op::kPerKnot floats.  The visit scheme is the grid's
+// (use_owners()), whatever the band height.
 template <int K, class Op, class E>
 cudaError_t launch_window_reduce(const E* jwin, const int* base,
                                  int base_sn, int base_sc,
                                  const float* per_obs, int n, int gh, int gw,
                                  int rows, float* partial, int nblocks,
                                  float* out, cudaStream_t stream) {
-  if (rows < 1 || rows > gh || nblocks < 1) return cudaErrorInvalidValue;
-  cudaError_t err =
-      use_ring<K, Op, E>(rows, gw)
-          ? launch_partial<K, Op, true, E>(jwin, base, base_sn, base_sc,
+  if (rows < 1 || rows > gh || nblocks < kCluster || nblocks % kCluster)
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      use_owners(gh, gw)
+          ? launch_partial<K, Op, E, true>(jwin, base, base_sn, base_sc,
                                            per_obs, n, gh, gw, rows, partial,
                                            nblocks, stream)
-          : launch_partial<K, Op, false, E>(jwin, base, base_sn, base_sc,
-                                            per_obs, n, gh, gw, rows,
-                                            partial, nblocks, stream);
+          : launch_partial<K, Op, E, false>(jwin, base, base_sn, base_sc,
+                                            per_obs, n, gh, gw, rows, partial,
+                                            nblocks, stream);
   if (err != cudaSuccess) return err;
   const int cols = gh * gw * Op::kPerKnot;
   window_sum_kernel<Op><<<(cols + 31) / 32, dim3(32, kSumWarps), 0, stream>>>(
-      partial, nblocks, gh * gw, out);
+      partial, nblocks / kCluster, gh * gw, out);
   return cudaGetLastError();
 }
 

@@ -255,6 +255,14 @@ PIPELINE_KERNELS = ("project", "project_blocks", "window_apply_j",
                     "window_apply_jtw", "window_block_diag")
 # The three pyramid grids of a 1920×1080 camera at 25 px per cell.
 PIPELINE_GRIDS = ("25x44", "34x59", "45x79")
+PIPELINE_GRID_SHAPES = ((25, 44), (34, 59), (45, 79))
+# The reductions' sources and the TPU kernels they replace.
+REDUCTION_SOURCES = {
+    "window_apply_jtw": ("camera_calibration_torch/csrc/window_apply_jtw.cu",
+                         "camera_calibration_tpu/ba/window_pallas.py:78"),
+    "window_block_diag": ("camera_calibration_torch/csrc/window_block_diag.cu",
+                          "camera_calibration_tpu/ba/window_pallas.py:99"),
+}
 
 # Calibration from images ([8] detects, [9a] calibrates): 30 rendered views
 # of a 24×24 board by a 1920×1080 pinhole camera, at depths that keep most
@@ -510,23 +518,22 @@ def main() -> int:
         log(f"[2] window_apply_j K={k_} at {gh_}x{gw_}: "
             f"{'staged' if staged else 'unstaged'} tangent "
             f"({gh_ * gw_ * k_ * 4} B)")
-    for name, per_knot in (("window_apply_jtw", 5), ("window_block_diag", 15)):
-        layout, rows = wc.reduction_plan(45, 79, 5, per_knot)
-        log(f"[2] {name} K=5 at 45x79: {'ring' if layout == wc.RING else 'compact'}"
-            f" layout, bands of {rows} rows ({wc.reduction_bands(45, 79, 5, per_knot)[1]}"
-            f" bands), {wc.reduction_smem_bytes(45, 79, 5, per_knot)} B shared, "
-            f"{wc._resident_blocks(name, 5, 45, 79, dev.index)} blocks per SM")
-    for k_, (gh_, gw_) in ((2, (16, 16)), (5, (16, 16)), (5, (45, 79))):
-        prep = wc.prep_rows("window_apply_jtw", k_)
-        layout, rows = wc.reduction_plan(gh_, gw_, k_, k_, 2,
-                                         prep_rows=prep)
-        log(f"[2] window_apply_jtw bf16 K={k_} at {gh_}x{gw_}: "
-            f"{'ring' if layout == wc.RING else 'compact'} layout, bands of "
-            f"{rows} rows, {wc.reduction_smem_bytes(gh_, gw_, k_, k_, elem_bytes=2, prep_rows=prep)}"
-            f" B shared (float32: "
-            f"{wc.reduction_smem_bytes(gh_, gw_, k_, k_)} B), "
-            f"{wc._resident_blocks('window_apply_jtw', k_, gh_, gw_, dev.index, 2)}"
-            " blocks per SM")
+    for name in wc.REDUCTIONS:
+        for k_ in wc.SUPPORTED_K:
+            for gh_, gw_ in ((16, 16),) + PIPELINE_GRID_SHAPES:
+                rows, bands = wc.reduction_bands(name, gh_, gw_, k_)
+                per_sm = [wc._resident_blocks(name, k_, gh_, gw_, dev.index, e)
+                          for e in (4, 2)]
+                scheme = ("knot owners" if wc.uses_owners(gh_, gw_)
+                          else "slot classes")
+                log(f"[2] {name} K={k_} at {gh_}x{gw_}: {scheme}, {bands} "
+                    f"band(s) of {rows} rows, "
+                    f"{wc.reduction_smem_bytes(name, gh_, gw_, k_)}"
+                    f" B shared, blocks of {wc.THREADS} threads per SM "
+                    f"{per_sm[0]} (float32) / {per_sm[1]} (bf16; shared "
+                    f"memory allows "
+                    f"{wc.smem_blocks_per_sm(name, gh_, gw_, k_)}), clusters "
+                    f"of {wc.CLUSTER}")
 
     # ------------------------------------------ 3. kernels vs plain versions
     rng = np.random.default_rng(0)
@@ -709,7 +716,7 @@ def main() -> int:
         if nn == n_obs:
             random_windows[(hh, ww, k)] = (jw, base)
         if (hh, ww, k) == (45, 79, 5):
-            require(wc.reduction_bands(hh, ww, k, 15)[1] > 1,
+            require(wc.reduction_bands("window_block_diag", hh, ww, k)[1] > 1,
                     "the K=5 block diagonal at 45x79 is not banded")
             for name, err in errs.items():
                 rows_k5.setdefault(name, {})["err_45x79"] = err
@@ -733,12 +740,12 @@ def main() -> int:
                                dtype=torch.float32, device=dev)
         w_b = torch.as_tensor(rng.uniform(0, 1, jw.shape[1]),
                               dtype=torch.float32, device=dev)
-        for name, call, per_knot in (
+        for name, call in (
                 ("window_apply_jtw", lambda **kw: wc.window_apply_jtw(
-                    jw, base, ws_b, gh, gw, k, **kw), k),
+                    jw, base, ws_b, gh, gw, k, **kw)),
                 ("window_block_diag", lambda **kw: wc.window_block_diag(
-                    jw, base, w_b, gh, gw, k, **kw), k * (k + 1) // 2)):
-            require(wc.reduction_bands(gh, gw, k, per_knot)[1] == 1,
+                    jw, base, w_b, gh, gw, k, **kw))):
+            require(wc.reduction_bands(name, gh, gw, k)[1] == 1,
                     f"{name} K={k}: not one band at 16x16")
             whole = call()
             same = all(bool(torch.equal(whole, call(band_rows=r)))
@@ -822,8 +829,7 @@ def main() -> int:
         whole = wc.window_apply_jtw(j16, base, ws_b, hh, ww, k)
         same = all(bool(torch.equal(whole, wc.window_apply_jtw(
             j16, base, ws_b, hh, ww, k, band_rows=r))) for r in widths)
-        bands = wc.reduction_bands(
-            hh, ww, k, k, 2, prep_rows=wc.prep_rows("window_apply_jtw", k))[1]
+        bands = wc.reduction_bands("window_apply_jtw", hh, ww, k)[1]
         log(f"    window_apply_jtw bf16 K={k} {hh}x{ww} in bands of "
             f"{widths} rows: bit-identical to the plan's ({bands} band(s)) "
             f"{same}")
@@ -851,8 +857,7 @@ def main() -> int:
                                        gw, k)
         banded = all(bool(torch.equal(got, wc.window_block_diag(
             j16, base, w, gh, gw, k, band_rows=r))) for r in widths)
-        bands = wc.reduction_bands(gh, gw, k, k * (k + 1) // 2, 2,
-                                   prep_rows=wc.prep_rows(name, k))[1]
+        bands = wc.reduction_bands(name, gh, gw, k)[1]
         e32 = rel_err(got.double(), widened.double())
         log(f"    {name} bf16 {label}: rel err {e:.3e}, repeatable "
             f"{bool(torch.equal(got, again))}, vs the float32 kernel on the "
@@ -878,8 +883,7 @@ def main() -> int:
     jw_r, base_r = random_windows[(45, 79, 5)]
     w_r = torch.as_tensor(rng.uniform(0, 1, jw_r.shape[1]),
                           dtype=torch.float32, device=dev)
-    require(wc.reduction_bands(45, 79, 5, 15, 2, prep_rows=wc.prep_rows(
-        "window_block_diag", 5))[1] > 1,
+    require(wc.reduction_bands("window_block_diag", 45, 79, 5)[1] > 1,
             "the bf16 K=5 block diagonal at 45x79 is not banded")
     check_block_diag_bf16(jw_r.bfloat16(), base_r, w_r, 45, 79, 5,
                           "random 45x79 K=5", (9,))
@@ -1314,8 +1318,7 @@ def main() -> int:
             library_ms = (None if lib is None
                           else time_ms(torch, lib, reps=100, warmup=5))
             b_ms, b_by = bound_ms(nbytes, flops)
-            per_knot = k if name == "window_apply_jtw" else k * (k + 1) // 2
-            bands = wc.reduction_bands(hh, ww, k, per_knot)[1]
+            bands = wc.reduction_bands(name, hh, ww, k)[1]
             lib_txt = ("" if library_ms is None
                        else f", torch.sparse {library_ms:.4f} ms")
             log(f"[5] {name} random {hh}x{ww} K={k}: {ms:.4f} ms, graph "
@@ -1525,6 +1528,7 @@ def main() -> int:
             row["pipeline_launches"] = {
                 grid: counts.get(row["name"], 0)
                 for grid, counts in pipeline["launches"].items()}
+    kernels += pipeline["window_rows"]
     log(f"[7] whole run {time.perf_counter() - t_start:.1f} s")
 
     # ----------------------------------- 8. feature detection in images
@@ -1539,6 +1543,7 @@ def main() -> int:
 
     # ------------------------ 9b. NoncentralGeneric from scratch at 1080p
     nc_run = noncentral_pipeline(torch, smi, checks)
+    kernels += nc_run["window_rows"]
     log(f"[9b] whole run {time.perf_counter() - t_start:.1f} s")
     for row in kernels:
         if row["name"] in PIPELINE_KERNELS:
@@ -1698,9 +1703,10 @@ def calibrate_dataset(torch, smi, ds, checks, dev, out_dir, tag, median_px,
             "state_io wrote no intrinsics")
     log(f"{tag} state saved to {out_dir / 'state'} in "
         f"{time.perf_counter() - t0:.2f} s")
-    check_pyramid_grids(torch, rec, checks, dev, tag)
+    window_rows = check_pyramid_grids(torch, rec, checks, dev, tag,
+                                      timed=PIPELINE_GRIDS, smi=smi)
     return {"launches": per_grid, "report": report, "times": times,
-            "stages": rec.stages}
+            "stages": rec.stages, "window_rows": window_rows}
 
 
 def grid_name(model):
@@ -1864,12 +1870,14 @@ class CalibrationRecord:
                         f"pipeline: kernel {name} never launched at {grid}")
 
 
-def check_pyramid_grids(torch, rec, checks, dev, tag):
+def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
     """Each kernel against its plain version at the inputs of each pyramid
     grid's first BA stage (the observed rows of the grid-layout table);
     for a CentralGeneric camera also one LM step through the kernels
     against the plain step, for a NoncentralGeneric one the K = 5 window
-    kernels only (its projection is plain)."""
+    kernels only (its projection is plain).  At the grids of ``timed``
+    the two reductions are also held bit for bit across band heights and
+    timed (:func:`time_pipeline_reductions`); returns their JSON rows."""
     from camera_calibration_torch import problems
     from camera_calibration_torch.ba import lm_pcg
     from camera_calibration_torch.ba import window_cuda as wc
@@ -1877,6 +1885,8 @@ def check_pyramid_grids(torch, rec, checks, dev, tag):
 
     t0 = time.perf_counter()
     bopts = lm_pcg.BAOptions(solver="schur", proj_iterations=4)
+    per_grid = rec.per_grid()
+    rows = []
     for grid, (st0, dat0) in rec.firsts.items():
         model = st0.intrinsics[0]
         central = hasattr(model, "grid")
@@ -1889,6 +1899,11 @@ def check_pyramid_grids(torch, rec, checks, dev, tag):
                          2 if central else 5,
                          f"pipeline {grid}, {b.intr.j_win.shape[1]} rows",
                          w=b.weight)
+        if grid in timed:
+            rows += time_pipeline_reductions(
+                torch, b.intr.j_win, b.intr.base_xy, b.weight, gh, gw,
+                2 if central else 5, f"{tag} {grid}", per_grid.get(grid, {}),
+                smi)
         if not central:
             continue
         d, g0 = problems.bench_projection_inputs(st0, seg)
@@ -1922,6 +1937,81 @@ def check_pyramid_grids(torch, rec, checks, dev, tag):
                 f"pipeline {grid}: the LM step through the kernels "
                 "disagrees with the plain step")
     log(f"{tag} pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def time_pipeline_reductions(torch, jw, base, wt, gh, gw, k, label, launches,
+                             smi):
+    """The two reductions on a pipeline grid's own window inputs: each
+    held bit for bit across band heights (1, half the plan's, the plan's)
+    and against its float64 plain version, then timed as [5] times the
+    bench rows, with torch.sparse CSR's JᵀW·s beside JᵀW·s.  Returns one
+    JSON row each (``launches``: that grid's count in the pipeline)."""
+    from camera_calibration_torch.ba import window_cuda as wc
+
+    n = jw.shape[1]
+    rng = np.random.default_rng(gh * 1000 + gw)
+    ws = torch.as_tensor(rng.normal(0, 1, (n, 2)), dtype=torch.float32,
+                         device=jw.device)
+    inside = float(wc._window_index(base, gh, gw)[1].sum())
+    _, jt = sparse_intrinsics_jacobian(torch, jw, base, gh, gw, k)
+    lib = lambda: (jt @ ws.reshape(-1, 1)).reshape(gh, gw, k)  # noqa: E731
+    common = jw.numel() * 4 + n * 2 * 4
+    out = []
+    for name, fn, ref, library, nbytes, flops in (
+            ("window_apply_jtw",
+             lambda **kw: wc.window_apply_jtw(jw, base, ws, gh, gw, k, **kw),
+             lambda: wc.window_apply_jtw_plain(jw.double(), base, ws.double(),
+                                               gh, gw, k),
+             lib, common + n * 2 * 4 + gh * gw * k * 4, 4 * k * inside),
+            ("window_block_diag",
+             lambda **kw: wc.window_block_diag(jw, base, wt, gh, gw, k, **kw),
+             lambda: wc.window_block_diag_plain(jw.double(), base,
+                                                wt.double(), gh, gw, k),
+             None, common + n * 4 + gh * gw * k * k * 4,
+             6 * (k * (k + 1) // 2) * inside)):
+        rows_p, bands = wc.reduction_bands(name, gh, gw, k)
+        got = fn()
+        reference = ref()
+        err = float((got.double() - reference).abs().max())
+        e = err / float(reference.abs().max())
+        heights = sorted({1, max(1, rows_p // 2), rows_p})
+        same = all(bool(torch.equal(got, fn(band_rows=r))) for r in heights)
+        require(e <= WINDOW_REL_TOL, f"{name} {label}: rel err {e}")
+        require(same, f"{name} {label}: band heights {heights} differ")
+        if library is not None:
+            e_lib = rel_err(library().double(), reference)
+            require(e_lib <= WINDOW_REL_TOL,
+                    f"sparse JtW {label}: rel err {e_lib}")
+        ms = time_ms(torch, fn, reps=100, warmup=5)
+        graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+        plain_ms = time_ms(torch, lambda: getattr(wc, name + "_plain")(
+            jw, base, ws if name == "window_apply_jtw" else wt, gh, gw, k),
+            reps=3, warmup=1)
+        library_ms = (None if library is None
+                      else time_ms(torch, library, reps=100, warmup=5))
+        library_graph_ms = (None if library is None
+                            else time_ms(torch, library, reps=100, warmup=1,
+                                         graph=True))
+        b_ms, b_by = bound_ms(nbytes, flops)
+        lib_txt = ("" if library_ms is None else
+                   f", torch.sparse {library_ms:.4f} ms (graph "
+                   f"{library_graph_ms:.4f})")
+        log(f"    {name} {label} K={k}: {n} rows, rel err {e:.3e}, band "
+            f"heights {heights} bit-identical; {ms:.4f} ms, graph "
+            f"{graph_ms:.4f} ms (plain {plain_ms:.4f} ms{lib_txt}, bound "
+            f"{b_ms:.4f} ms by {b_by}; {launches.get(name, 0)} launches "
+            f"there, {bands} band(s)) on {smi}")
+        out.append({
+            "name": f"{name}{'_k5' if k == 5 else ''}_pipeline_"
+                    f"{gh}x{gw}",
+            "route": "cuda", "source": REDUCTION_SOURCES[name][0],
+            "replaces": REDUCTION_SOURCES[name][1],
+            "launches": launches.get(name, 0), "max_abs_err": err,
+            "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "n": n, "pipeline": label})
+    return out
 
 
 def image_pipeline(torch, smi, n_views, device=None):
@@ -2367,7 +2457,8 @@ def noncentral_pipeline(torch, smi, checks, device=None):
     for suffix in ("_line_offsets.png", "_lines.obj", "_info.txt"):
         require((out / "out" / "report" / f"report_camera0{suffix}").exists(),
                 f"calibrate --report wrote no {suffix}")
-    check_pyramid_grids(torch, rec, checks, dev, "[9b]")
+    window_rows = check_pyramid_grids(torch, rec, checks, dev, "[9b]",
+                                      timed=("45x79",), smi=smi)
     lm = {f"{st_['grid']} {i}": round(st_["iterations"]
                                       / max(st_["seconds"], 1e-9), 3)
           for i, st_ in enumerate(rec.stages)}
@@ -2376,7 +2467,8 @@ def noncentral_pipeline(torch, smi, checks, device=None):
         f"the float64 polish {rec.stages[-1]['seconds']:.2f}), report "
         f"{times['report']:.2f}; LM it/s per BA stage {json.dumps(lm)} on "
         f"{smi}")
-    return {"launches": per_grid, "report": report, "times": times}
+    return {"launches": per_grid, "report": report, "times": times,
+            "window_rows": window_rows}
 
 
 def stereo_texture(u, v):

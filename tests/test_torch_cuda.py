@@ -8,14 +8,17 @@ machine with a card they run without the suite's conftest:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_cuda.py
 
-The K=5 reductions past one block's shared memory run in bands of grid
-rows (``ba/window_cuda.reduction_plan``); bands of any height give
-bit-identical results.  All three window kernels also read a bfloat16
-j_win (the CG matvecs' copies for the two matvecs): held against the
-float64 plain version of the same bf16 values, with N odd, even but not a
-multiple of 8, and a j_win view that is not 4-byte aligned (the kernels'
-three staging paths); the bf16 block diagonal also agrees with the
-float32 kernel on the widened values to 1e-6.
+The reductions past one block's shared memory run in bands of grid rows
+(``ba/window_cuda.reduction_plan``); bands of any height give
+bit-identical results, on random and on clustered windows (one view's
+features a tile) at the 1080p grid 45x79.  All three window kernels also
+read a bfloat16 j_win (the CG matvecs' copies for the two matvecs): held
+against the float64 plain version of the same bf16 values, with N odd,
+even but not a multiple of 8, and a j_win view that is not 4-byte aligned;
+the two reductions on a bf16 j_win equal the float32 kernels on the
+widened values bit for bit where both plans take the same block count
+(one layout, one order), and the block diagonal agrees with them to 1e-6
+in any case.
 
 The detector and the fused corner refinement run in float32 on the card
 against float64 on the CPU (the same features, positions within 1e-3 px
@@ -75,8 +78,11 @@ def _rel(got, ref):
 
 def _window_inputs(card, gh, gw, k, n, seed, bases="random"):
     """Seeded window inputs.  ``bases``: "random" (windows reach past every
-    edge), "same" (every window at one base inside the grid) or "outside"
-    (every window at (-10, -10), wholly off the grid)."""
+    edge), "clustered" (views of 576 features, as a 24x24 board: each
+    view's bases uniform in its own rectangle of about a quarter of the
+    grid's width and height, somewhere on the grid or past an edge), "same"
+    (every window at one base inside the grid) or "outside" (every window
+    at (-10, -10), wholly off the grid)."""
     rng = np.random.default_rng(seed)
 
     def f32(a):
@@ -85,6 +91,12 @@ def _window_inputs(card, gh, gw, k, n, seed, bases="random"):
     j_win = f32(rng.normal(0, 1, (32 * k, n)))
     if bases == "random":
         xy = np.stack([rng.integers(-3, gw, n), rng.integers(-3, gh, n)], 1)
+    elif bases == "clustered":
+        views = -(-n // 576)
+        size = np.array([max(2, gw // 4), max(2, gh // 4)])
+        lo = np.stack([rng.integers(-3, gw - 1, views),
+                       rng.integers(-3, gh - 1, views)], 1)
+        xy = np.repeat(lo, 576, 0)[:n] + rng.integers(0, size, (n, 2))
     else:
         at = (gw // 3, gh // 3) if bases == "same" else (-10, -10)
         xy = np.tile(np.array(at), (n, 1))
@@ -93,9 +105,9 @@ def _window_inputs(card, gh, gw, k, n, seed, bases="random"):
             f32(rng.normal(0, 1, (n, 2))), f32(rng.uniform(0, 1, n)))
 
 
-# The largest square grid whose K=5 block-diagonal reduction fits in one
-# block's shared memory in one band (ba/window_cuda.reduction_plan): the
-# compact layout.  The ring's largest is 48; larger grids take bands.
+# A square grid just past the largest (56x56) whose K=5 block-diagonal
+# reduction fits in one block's shared memory in one band
+# (ba/window_cuda.reduction_plan): two bands of 29 rows.
 K5_MAX_GRID = 58
 
 
@@ -111,19 +123,25 @@ K5_MAX_GRID = 58
     (16, 16, 2, 5000, "outside"),
     # the pipeline's default grid for a 1080p camera (25 px cells)
     (45, 79, 2, 50000, "random"),
-    # block diagonals in the compact layout (past the ring): K=5 at 56x56
-    # and K=2 at 128x128, the largest square grids of the earlier
-    # single-stage kernel, and K=5 at the largest of all
+    # K=5 at 56x56 (the largest square K=5 block diagonal of one band) and
+    # K=2 at 128x128, the largest square grids of the earlier single-stage
+    # kernel, and the K=5 block diagonal just past one band
     (56, 56, 5, 20000, "random"), (128, 128, 2, 20000, "random"),
     (K5_MAX_GRID, K5_MAX_GRID, 5, 20001, "random"),
-    # banded: the K=5 block diagonal at 45x79 (two bands of the ring),
-    # 59x59 (two ring bands) and 107x107 (four compact bands, the largest
-    # square K=5 grid whose tangent fits window_apply_j's block)
+    # banded: the K=5 block diagonal at 45x79 (two bands), 59x59 (two
+    # bands) and 107x107 (the largest square K=5 grid whose tangent fits
+    # window_apply_j's block)
     (45, 79, 5, 50000, "random"), (59, 59, 5, 20001, "random"),
     (107, 107, 5, 20000, "random"), (45, 79, 5, 20000, "same"),
     # K=5 at 108x108: window_apply_j reads the tangent from device memory
     # (it no longer fits one block), the reductions run in bands
     (108, 108, 5, 20000, "random"),
+    # the 1080p grid: clustered tiles (one view's features) and random
+    # ones for K=2 and K=5, N past a whole number of tiles, a tile whose
+    # windows all meet at one knot, and tiles wholly off the grid
+    (45, 79, 2, 50000, "clustered"), (45, 79, 5, 50000, "clustered"),
+    (45, 79, 5, 50001, "random"), (45, 79, 2, 20000, "same"),
+    (45, 79, 2, 5000, "outside"), (45, 79, 5, 5000, "outside"),
 ])
 def test_window_kernels_match_plain(card, gh, gw, k, n, bases):
     j_win, base, tangent, ws, w = _window_inputs(card, gh, gw, k, n, seed=k,
@@ -285,10 +303,11 @@ def test_projection_points_converging_at_different_iterations(card):
 
 
 def test_window_apply_jtw_compact_layout(card):
-    """J^T W s on a grid past its ring (K=2, 160x160), where the block
-    diagonal does not fit at all."""
+    """J^T W s on a large grid that still fits one block in one band (K=2,
+    160x160), where the block diagonal takes bands."""
     gh = gw = 160
-    assert wc.reduction_layout(gh, gw, 2, 2) == wc.COMPACT
+    assert wc.reduction_bands("window_apply_jtw", gh, gw, 2)[1] == 1
+    assert wc.reduction_bands("window_block_diag", gh, gw, 2)[1] > 1
     j_win, base, _, ws, _ = _window_inputs(card, gh, gw, 2, 20001, seed=3)
     ref = wc.window_apply_jtw_plain(j_win.double(), base, ws.double(), gh, gw, 2)
     got = wc.window_apply_jtw(j_win, base, ws, gh, gw, 2)
@@ -301,27 +320,28 @@ def test_window_apply_jtw_compact_layout(card):
     ("window_apply_jtw", lambda k: k, (4, 2)),
     ("window_block_diag", lambda k: k * (k + 1) // 2, (4, 2))])
 def test_reduction_smem_bytes_match_the_kernels(card, name, per_knot, elems):
-    """The Python reckoning equals the library's own, in both layouts and
-    with bands, for each j_win type a kernel reads: shared memory and rows
-    per band."""
+    """The Python reckoning equals the library's own, with and without
+    bands, for each j_win type a kernel reads (one layout for both):
+    shared memory and rows per band; and every block of the plan's band
+    fits on an SM."""
     entry = getattr(_cuda.lib(), f"cct_{name}_smem_bytes")
     rows = getattr(_cuda.lib(), f"cct_{name}_band_rows")
     for elem in elems:
         for k in wc.SUPPORTED_K:
-            for gh, gw in ((16, 16), (45, 79), (48, 48), (56, 56), (58, 58),
-                           (59, 59), (84, 84), (102, 102), (127, 127),
-                           (128, 128), (160, 160), (10, 1000), (400, 400)):
-                prep = wc.prep_rows(name, k) if elem == 2 else 0
+            assert wc.per_knot(name, k) == per_knot(k)
+            for gh, gw in ((16, 16), (25, 44), (34, 59), (45, 79), (48, 48),
+                           (56, 56), (58, 58), (59, 59), (84, 84), (102, 102),
+                           (127, 127), (128, 128), (160, 160), (10, 1000),
+                           (400, 400)):
                 assert entry(k, gh, gw, elem) == wc.reduction_smem_bytes(
-                    gh, gw, k, per_knot(k), elem_bytes=elem,
-                    prep_rows=prep), (k, gh, gw)
+                    name, gh, gw, k), (k, gh, gw)
                 assert rows(k, gh, gw, elem) == wc.reduction_plan(
-                    gh, gw, k, per_knot(k), elem, prep_rows=prep)[1], \
-                    (k, gh, gw)
-    # one grid row wider than fits one float32 block: no band
+                    name, gh, gw, k), (k, gh, gw)
+                assert wc._resident_blocks(name, k, gh, gw, card.index or 0,
+                                           elem) >= 1
+    # one grid row wider than fits one block: no band
     for k in wc.SUPPORTED_K:
-        widest = (_cuda.MAX_SMEM_BYTES // 4 - 32 * k * 36 - 128 - 1) \
-            // (1 + per_knot(k))
+        widest = wc.widest_row(name, k)
         assert rows(k, 2, widest, 4) == 1 and rows(k, 2, widest + 1, 4) == 0
 
 
@@ -333,16 +353,12 @@ def test_narrower_bands_are_bit_identical(card, gh, gw, k, band_rows):
     the band height: narrower bands than the plan's (here in the plan's
     layout) give bit-identical results, the untiled kernel included."""
     j_win, base, _, ws, w = _window_inputs(card, gh, gw, k, 30001, seed=11)
-    for per_knot, call in ((k, lambda **kw: wc.window_apply_jtw(
+    for name, call in (("window_apply_jtw", lambda **kw: wc.window_apply_jtw(
             j_win, base, ws, gh, gw, k, **kw)),
-            (k * (k + 1) // 2, lambda **kw: wc.window_block_diag(
+            ("window_block_diag", lambda **kw: wc.window_block_diag(
                 j_win, base, w, gh, gw, k, **kw))):
-        rows, _ = wc.reduction_bands(gh, gw, k, per_knot)
+        rows, _ = wc.reduction_bands(name, gh, gw, k)
         assert band_rows < rows
-        assert wc.reduction_plan(gh, gw, k, per_knot)[0] == (
-            wc.RING if wc._layout_smem_bytes(band_rows, gw, k, per_knot,
-                                             wc.RING)
-            <= _cuda.MAX_SMEM_BYTES else wc.COMPACT)
         assert torch.equal(call(), call(band_rows=band_rows))
 
 
@@ -361,9 +377,9 @@ def _bf16_view(j_win, aligned):
 
 @pytest.mark.parametrize("gh,gw,k,n,aligned", [
     (16, 16, 2, 20000, True), (16, 16, 5, 20000, True),
-    # even N, not a multiple of 8: 4-byte copies of bf16 pairs
+    # even N, not a multiple of 8
     (16, 16, 2, 20002, True), (21, 28, 5, 5006, True),
-    # odd N: single-element loads
+    # odd N
     (16, 16, 2, 20001, True), (21, 28, 5, 5001, True), (7, 9, 5, 33, True),
     # a j_win view 2 bytes past 4-byte alignment
     (16, 16, 2, 20000, False), (21, 28, 5, 5000, False),
@@ -408,8 +424,7 @@ def test_bf16_jtw_narrower_bands_are_bit_identical(card, gh, gw, k,
                                                    band_rows):
     j32, base, _, ws, _ = _window_inputs(card, gh, gw, k, 30001, seed=12)
     j_win = j32.bfloat16()
-    rows, _ = wc.reduction_bands(
-        gh, gw, k, k, 2, prep_rows=wc.prep_rows("window_apply_jtw", k))
+    rows, _ = wc.reduction_bands("window_apply_jtw", gh, gw, k)
     assert band_rows < rows
     whole = wc.window_apply_jtw(j_win, base, ws, gh, gw, k)
     assert torch.equal(whole, wc.window_apply_jtw(j_win, base, ws, gh, gw, k,
@@ -456,13 +471,59 @@ def test_bf16_block_diag_narrower_bands_are_bit_identical(card, gh, gw, k,
                                                           band_rows):
     j32, base, _, _, w = _window_inputs(card, gh, gw, k, 30001, seed=13)
     j_win = j32.bfloat16()
-    rows, _ = wc.reduction_bands(
-        gh, gw, k, k * (k + 1) // 2, 2,
-        prep_rows=wc.prep_rows("window_block_diag", k))
+    rows, _ = wc.reduction_bands("window_block_diag", gh, gw, k)
     assert band_rows < rows
     whole = wc.window_block_diag(j_win, base, w, gh, gw, k)
     assert torch.equal(whole, wc.window_block_diag(j_win, base, w, gh, gw, k,
                                                    band_rows=band_rows))
+
+
+@pytest.mark.parametrize("k,bases", [
+    (2, "clustered"), (5, "clustered"), (2, "random"), (5, "random")])
+def test_every_band_height_is_bit_identical_at_1080p(card, k, bases):
+    """At the 1080p grid 45x79 both reductions give the same bits in bands
+    of every height from 1 row to the plan's, on float32 and bf16 j_win:
+    each knot sums the same tiles in the same order whatever the band,
+    and the launch keeps the plan's block count and clusters of
+    ``wc.CLUSTER`` (the one cluster size the plan takes)."""
+    gh, gw = 45, 79
+    j32, base, _, ws, w = _window_inputs(card, gh, gw, k, 40001, seed=30 + k,
+                                         bases=bases)
+    for j_win in (j32, j32.bfloat16()):
+        for name, per_obs in (("window_apply_jtw", ws),
+                              ("window_block_diag", w)):
+            rows, _ = wc.reduction_bands(name, gh, gw, k)
+            fn = getattr(wc, name)
+            whole = fn(j_win, base, per_obs, gh, gw, k)
+            for r in sorted({1, 2, 3, 4, 5, 9, 16, 22, 23, rows}):
+                if r <= rows:
+                    assert torch.equal(whole, fn(j_win, base, per_obs, gh, gw,
+                                                 k, band_rows=r)), (name, r)
+
+
+@pytest.mark.parametrize("gh,gw,k,bases", [
+    (16, 16, 2, "random"), (16, 16, 5, "clustered"), (45, 79, 2, "clustered"),
+    (45, 79, 5, "random")])
+def test_bf16_reductions_equal_the_float32_kernels_on_the_widened_values(
+        card, gh, gw, k, bases):
+    """A bf16 j_win is widened as it is stored and then reduced as a
+    float32 one: the same bits as the float32 kernel on the widened values
+    where both take the same block count, else within 1e-6 (the sums split
+    over other blocks)."""
+    j32, base, _, ws, w = _window_inputs(card, gh, gw, k, 30001, seed=40 + k,
+                                         bases=bases)
+    j16 = j32.bfloat16()
+    widened = j16.float().contiguous()
+    for name, per_obs in (("window_apply_jtw", ws), ("window_block_diag", w)):
+        fn = getattr(wc, name)
+        got = fn(j16, base, per_obs, gh, gw, k)
+        ref = fn(widened, base, per_obs, gh, gw, k)
+        blocks = [wc._resident_blocks(name, k, gh, gw, card.index or 0, e)
+                  for e in (2, 4)]
+        if blocks[0] == blocks[1]:
+            assert torch.equal(got, ref), name
+        else:
+            assert _rel(got, ref) <= 1e-6, name
 
 
 def test_project_smem_bytes_match_the_kernels(card):

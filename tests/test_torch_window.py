@@ -143,174 +143,226 @@ def test_windows_outside_the_grid_contribute_nothing():
     assert torch.count_nonzero(wc.window_block_diag(j_win, base, w, gh, gw, k)) == 0
 
 
-# Shared memory of one reduction block, counted by hand from the layouts of
-# csrc/window_reduce.cuh.  Ring: two stages of 32K j_win rows of 64 + 4
-# floats plus 4 * 64 floats of weights and bases, and (gh + gw) lines of 2
-# mask words.  Compact: one stage of 32K rows of 32 + 4 floats plus 4 * 32,
-# and (gh + gw) lines of 1 mask word.  Both: gh * gw * per_knot accumulator
-# floats.  Four bytes each.
+# Shared memory of one reduction block, counted by hand from the layout of
+# csrc/window_reduce.cuh: the stage, prep rows of 64 + 1 floats (JᵀW·s 16K
+# with ws folded in; the K=2 block diagonal its 16 * 3 products; the K=5
+# one the 32K values and the weight, 161) and two int rows of 64 window
+# bases; on grids of at most 256 knots (the knot-owner scheme) the row and
+# column masks, (rows + gw) * 2 words; the band's accumulator, rows * gw
+# knots of per_knot floats.  Four bytes each.
 SMEM_CASES = [
-    # 16x16, K=2, window_apply_jtw: 2*(64*68 + 256) + 32*2 + 256*2 floats
-    (16, 16, 2, 2, wc.RING, 4 * (2 * (64 * 68 + 256) + 32 * 2 + 256 * 2), 39168),
-    # 16x16, K=2, window_block_diag (3 values per knot)
-    (16, 16, 2, 3, wc.RING, 4 * (2 * (64 * 68 + 256) + 32 * 2 + 256 * 3), 40192),
+    # 16x16, K=2, window_apply_jtw, owners: 32*65 + 128 + 32*2 + 256*2
+    ("window_apply_jtw", 16, 16, 2, 4 * (32 * 65 + 128 + 64 + 256 * 2),
+     11136),
+    # 16x16, K=2, window_block_diag (3 values per knot, 48 prep rows)
+    ("window_block_diag", 16, 16, 2, 4 * (48 * 65 + 128 + 64 + 256 * 3),
+     16320),
     # 45x79 (the 1080p default grid), K=2, both ops
-    (45, 79, 2, 2, wc.RING, 4 * (2 * (64 * 68 + 256) + 124 * 2 + 3555 * 2), 66296),
-    (45, 79, 2, 3, wc.RING, 4 * (2 * (64 * 68 + 256) + 124 * 2 + 3555 * 3), 80516),
-    # K=5 block diagonal at 48x48, the largest square grid of the ring
-    (48, 48, 5, 15, wc.RING, 4 * (2 * (160 * 68 + 256) + 96 * 2 + 2304 * 15), 228096),
-    # ... and at 49x49 and 58x58 (the largest square grid of all), compact
-    (49, 49, 5, 15, wc.COMPACT, 4 * (160 * 36 + 128 + 98 + 2401 * 15), 168004),
-    (58, 58, 5, 15, wc.COMPACT, 4 * (160 * 36 + 128 + 116 + 3364 * 15), 225856),
-    # K=2 block diagonal at 128x128: past the ring, compact
-    (128, 128, 2, 3, wc.COMPACT, 4 * (64 * 36 + 128 + 256 + 16384 * 3), 207360),
+    ("window_apply_jtw", 45, 79, 2, 4 * (32 * 65 + 128 + 3555 * 2), 37272),
+    ("window_block_diag", 45, 79, 2, 4 * (48 * 65 + 128 + 3555 * 3), 55652),
+    # K=5 block diagonal at 48x48 and 49x49, one band
+    ("window_block_diag", 48, 48, 5, 4 * (161 * 65 + 128 + 2304 * 15),
+     180612),
+    ("window_block_diag", 49, 49, 5, 4 * (161 * 65 + 128 + 2401 * 15),
+     186432),
+    # ... and at 56x56, the largest square grid of one band
+    ("window_block_diag", 56, 56, 5, 4 * (161 * 65 + 128 + 3136 * 15),
+     230532),
+    # K=2 block diagonal at 128x128, one band
+    ("window_block_diag", 128, 128, 2, 4 * (48 * 65 + 128 + 16384 * 3),
+     209600),
 ]
 
 
-@pytest.mark.parametrize("gh,gw,k,per_knot,layout,formula,total", SMEM_CASES)
-def test_reduction_smem_bytes(gh, gw, k, per_knot, layout, formula, total):
+@pytest.mark.parametrize("name,gh,gw,k,formula,total", SMEM_CASES)
+def test_reduction_smem_bytes(name, gh, gw, k, formula, total):
     assert formula == total
-    assert wc.reduction_layout(gh, gw, k, per_knot) == layout
-    assert wc.reduction_smem_bytes(gh, gw, k, per_knot) == total
-    _cuda.check_smem(total, "window_block_diag")
+    assert wc.reduction_bands(name, gh, gw, k) == (gh, 1)
+    assert wc.reduction_smem_bytes(name, gh, gw, k) == total
+    _cuda.check_smem(total, name)
 
 
-# A bfloat16 j_win, counted by hand: each stage's 32K rows are 64 + 8 bf16
-# (half the floats), and the tile is prepared into a float32 area of rows
-# of 64 + 4 floats: JᵀW·s keeps 16K prepared rows, the block diagonal
-# widens all 32K (the kernels' ``kPrepRows``).
+# A bfloat16 j_win is widened as it is stored: the stage holds the same
+# float32 rows as for a float32 j_win (the kernels' ``kPrepRows``: JᵀW·s
+# 16K, the block diagonal 48 folded products at K=2 and 32K values and the
+# weight at K=5), so one plan serves both element types.
 BF16_SMEM_CASES = [
-    # 16x16, K=2, JᵀW·s: 2*(64*72/2 + 256) + 32*68 + 32*2 + 256*2 floats
-    ("window_apply_jtw", 16, 16, 2, 2, 32,
-     4 * (2 * (64 * 36 + 256) + 32 * 68 + 32 * 2 + 256 * 2), 31488),
-    # 16x16, K=2, block diagonal: 64 widened rows
-    ("window_block_diag", 16, 16, 2, 3, 64,
-     4 * (2 * (64 * 36 + 256) + 64 * 68 + 32 * 2 + 256 * 3), 41216),
-    # 16x16, K=5, block diagonal: 160 widened rows
-    ("window_block_diag", 16, 16, 5, 15, 160,
-     4 * (2 * (160 * 36 + 256) + 160 * 68 + 32 * 2 + 256 * 15), 107264),
+    ("window_apply_jtw", 16, 16, 2, 32,
+     4 * (32 * 65 + 128 + 64 + 256 * 2), 11136),
+    ("window_block_diag", 16, 16, 2, 48,
+     4 * (48 * 65 + 128 + 64 + 256 * 3), 16320),
+    ("window_block_diag", 16, 16, 5, 161,
+     4 * (161 * 65 + 128 + 64 + 256 * 15), 57988),
 ]
 
 
-@pytest.mark.parametrize("name,gh,gw,k,per_knot,prep,formula,total",
-                         BF16_SMEM_CASES)
-def test_bf16_reduction_smem_bytes(name, gh, gw, k, per_knot, prep, formula,
-                                   total):
+@pytest.mark.parametrize("name,gh,gw,k,prep,formula,total", BF16_SMEM_CASES)
+def test_bf16_reduction_smem_bytes(name, gh, gw, k, prep, formula, total):
     assert formula == total
     assert wc.prep_rows(name, k) == prep
-    assert wc.reduction_layout(gh, gw, k, per_knot, 2,
-                               prep_rows=prep) == wc.RING
-    assert wc.reduction_smem_bytes(gh, gw, k, per_knot, elem_bytes=2,
-                                   prep_rows=prep) == total
-    # the bfloat16 plan is not guessed from the other numbers
-    with pytest.raises(ValueError, match="prep_rows"):
-        wc.reduction_plan(gh + 1, gw, k, per_knot, 2)
+    assert wc.reduction_smem_bytes(name, gh, gw, k) == total
+    # JᵀW·s of K=5 folds ws into its 16K rows: half of the 32K it reads
+    assert wc.prep_rows("window_apply_jtw", 5) == 80
 
 
-# (gh, gw, k, per_knot): grids where one grid row does not fit one block
-# (compact layout, one row: 4 * (32K * 36 + 128 + (1 + gw) + gw * per_knot)
-# bytes), the only grids the banded reduction refuses.
-TOO_WIDE = [(2, 3264, 5, 15), (1, 3264, 5, 15), (45, 13920, 2, 3),
-            (3, 8704, 5, 5)]
+# (name, gh, gw, k): grids where one grid row does not fit one block
+# (one row: 4 * (prep * 65 + 128 + gw * per_knot) bytes), the only grids
+# the banded reduction refuses.
+TOO_WIDE = [("window_block_diag", 2, 3168, 5),
+            ("window_block_diag", 1, 3168, 5),
+            ("window_block_diag", 45, 18289, 2),
+            ("window_apply_jtw", 3, 10557, 5)]
 
 
-@pytest.mark.parametrize("gh,gw,k,per_knot", TOO_WIDE)
-def test_reduction_past_the_block_limit_is_refused(gh, gw, k, per_knot):
-    row = 4 * (32 * k * 36 + 128 + (1 + gw) + gw * per_knot)
+@pytest.mark.parametrize("name,gh,gw,k", TOO_WIDE)
+def test_reduction_past_the_block_limit_is_refused(name, gh, gw, k):
+    prep = {("window_block_diag", 5): 161, ("window_block_diag", 2): 48,
+            ("window_apply_jtw", 5): 80}[name, k]
+    per_knot = {"window_block_diag": k * (k + 1) // 2,
+                "window_apply_jtw": k}[name]
+    row = 4 * (prep * 65 + 128 + gw * per_knot)
     assert row > _cuda.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="shared memory"):
-        wc.reduction_plan(gh, gw, k, per_knot)
+        wc.reduction_plan(name, gh, gw, k)
     # one column fewer fits, in bands of one row where it must
-    layout, rows = wc.reduction_plan(gh, gw - 1, k, per_knot)
-    assert wc.reduction_smem_bytes(gh, gw - 1, k, per_knot) \
+    assert gw - 1 == wc.widest_row(name, k)
+    assert wc.reduction_plan(name, gh, gw - 1, k) == 1
+    assert wc.reduction_smem_bytes(name, gh, gw - 1, k) \
         <= _cuda.MAX_SMEM_BYTES
 
 
-# Bands of the reduction's partial pass, counted by hand: (gh, gw, k,
-# per_knot, layout, band rows, bands, bytes of one block).
+# Bands of the reduction's partial pass, counted by hand: (name, gh, gw,
+# k, band rows, bands, bytes of one block).
 BAND_CASES = [
     # the 1080p default grid, K=5 block diagonal: the whole grid needs
-    # 4 * (160 * 36 + 128 + 124 + 3555 * 15) = 237,348 B compact; two bands
-    # of 23 and 22 rows fit the ring
-    (45, 79, 5, 15, wc.RING, 23, 2,
-     4 * (2 * (160 * 68 + 256) + (23 + 79) * 2 + 23 * 79 * 15)),
-    # ... and its JtW still takes one band
-    (45, 79, 5, 5, wc.RING, 45, 1,
-     4 * (2 * (160 * 68 + 256) + (45 + 79) * 2 + 3555 * 5)),
+    # 4 * (161 * 65 + 128 + 3555 * 15) = 255,672 B; two bands of 23 and 22
+    # rows fit
+    ("window_block_diag", 45, 79, 5, 23, 2,
+     4 * (161 * 65 + 128 + 23 * 79 * 15)),
+    # ... and its JtW takes one band
+    ("window_apply_jtw", 45, 79, 5, 45, 1, 4 * (80 * 65 + 128 + 3555 * 5)),
     # one row past the largest square grid of one band
-    (59, 59, 5, 15, wc.RING, 30, 2,
-     4 * (2 * (160 * 68 + 256) + (30 + 59) * 2 + 30 * 59 * 15)),
-    (84, 84, 5, 15, wc.RING, 28, 3,
-     4 * (2 * (160 * 68 + 256) + (28 + 84) * 2 + 28 * 84 * 15)),
-    # large grids: compact bands
-    (160, 160, 5, 15, wc.COMPACT, 20, 8,
-     4 * (160 * 36 + 128 + (20 + 160) + 20 * 160 * 15)),
-    (400, 400, 2, 3, wc.COMPACT, 45, 9,
-     4 * (64 * 36 + 128 + (45 + 400) + 45 * 400 * 3)),
+    ("window_block_diag", 59, 59, 5, 30, 2,
+     4 * (161 * 65 + 128 + 30 * 59 * 15)),
+    ("window_block_diag", 84, 84, 5, 28, 3,
+     4 * (161 * 65 + 128 + 28 * 84 * 15)),
+    # large grids
+    ("window_block_diag", 160, 160, 5, 18, 9,
+     4 * (161 * 65 + 128 + 18 * 160 * 15)),
+    ("window_block_diag", 400, 400, 2, 45, 9,
+     4 * (48 * 65 + 128 + 45 * 400 * 3)),
     # bands that do not divide the rows evenly: 10 rows in 4 bands of 3
-    (10, 1000, 5, 15, wc.COMPACT, 3, 4,
-     4 * (160 * 36 + 128 + (3 + 1000) + 3 * 1000 * 15)),
+    ("window_block_diag", 10, 1000, 5, 3, 4,
+     4 * (161 * 65 + 128 + 3 * 1000 * 15)),
 ]
 
 
-@pytest.mark.parametrize("gh,gw,k,per_knot,layout,rows,bands,nbytes",
-                         BAND_CASES)
-def test_reduction_bands(gh, gw, k, per_knot, layout, rows, bands, nbytes):
-    assert wc.reduction_plan(gh, gw, k, per_knot) == (layout, rows)
-    assert wc.reduction_bands(gh, gw, k, per_knot) == (rows, bands)
-    assert wc.reduction_smem_bytes(gh, gw, k, per_knot) == nbytes
-    _cuda.check_smem(nbytes, "window_block_diag")
+@pytest.mark.parametrize("name,gh,gw,k,rows,bands,nbytes", BAND_CASES)
+def test_reduction_bands(name, gh, gw, k, rows, bands, nbytes):
+    assert wc.reduction_plan(name, gh, gw, k) == rows
+    assert wc.reduction_bands(name, gh, gw, k) == (rows, bands)
+    assert wc.reduction_smem_bytes(name, gh, gw, k) == nbytes
+    _cuda.check_smem(nbytes, name)
     # the fewest bands: one band fewer does not fit
     if bands > 1:
         wider = -(-gh // (bands - 1))
-        assert wc._layout_smem_bytes(wider, gw, k, per_knot, wc.COMPACT) \
-            > _cuda.MAX_SMEM_BYTES
+        assert wc._band_smem_bytes(name, wider, gw, k) > _cuda.MAX_SMEM_BYTES
 
 
-@pytest.mark.parametrize("k,per_knot", [(2, 2), (2, 3), (5, 5), (5, 15)])
-def test_reduction_takes_every_grid_with_a_row_that_fits(k, per_knot):
+REDUCTION_KS = [("window_apply_jtw", 2), ("window_block_diag", 2),
+                ("window_apply_jtw", 5), ("window_block_diag", 5)]
+
+
+@pytest.mark.parametrize("name,k", REDUCTION_KS)
+def test_reduction_takes_every_grid_with_a_row_that_fits(name, k):
     """Every square grid up to 600x600, and the widest single rows, get a
     plan whose bands cover the grid and whose block fits; a grid that fits
     one block keeps one band."""
     for g in range(4, 601, 7):
-        layout, rows = wc.reduction_plan(g, g, k, per_knot)
+        rows = wc.reduction_plan(name, g, g, k)
         bands = -(-g // rows)
         assert bands * rows >= g > (bands - 1) * rows
-        assert wc.reduction_smem_bytes(g, g, k, per_knot) \
+        assert wc.reduction_smem_bytes(name, g, g, k) \
             <= _cuda.MAX_SMEM_BYTES
-        whole = wc._layout_smem_bytes(g, g, k, per_knot, wc.COMPACT)
+        whole = wc._band_smem_bytes(name, g, g, k)
         assert (rows == g) == (whole <= _cuda.MAX_SMEM_BYTES)
-    widest = (_cuda.MAX_SMEM_BYTES // 4 - 32 * k * 36 - 128 - 1) \
-        // (1 + per_knot)
-    assert wc.reduction_plan(7, widest, k, per_knot)[1] == 1
+    widest = wc.widest_row(name, k)
+    assert wc.reduction_plan(name, 7, widest, k) == 1
     with pytest.raises(ValueError, match="shared memory"):
-        wc.reduction_plan(7, widest + 1, k, per_knot)
+        wc.reduction_plan(name, 7, widest + 1, k)
 
 
-@pytest.mark.parametrize("k,per_knot", [(2, 2), (2, 3), (5, 5), (5, 15)])
-def test_reduction_takes_every_grid_of_the_single_stage_layout(k, per_knot):
+@pytest.mark.parametrize("name,k", REDUCTION_KS)
+def test_reduction_takes_every_grid_of_the_single_stage_layout(name, k):
     """Every grid that fitted the earlier single-stage kernel (tiles of 128
     observations for K=2 and 64 for K=5, j_win rows padded by one, no
-    masks) still fits one block."""
+    masks) gets a plan whose block fits one SM."""
     tile = 128 if k == 2 else 64
+    per_knot = wc.per_knot(name, k)
     for gh in range(1, 200):
         for gw in range(gh, 2000):
             old = 4 * (gh * gw * per_knot + 32 * k * (tile + 1) + 4 * tile)
             if old > _cuda.MAX_SMEM_BYTES:
                 break
-            nbytes = wc.reduction_smem_bytes(gh, gw, k, per_knot)
+            nbytes = wc.reduction_smem_bytes(name, gh, gw, k)
             assert nbytes <= _cuda.MAX_SMEM_BYTES, (gh, gw)
 
 
-@pytest.mark.parametrize("n,tile,per_sm,sms,blocks", [
-    (262_144, 64, 4, 132, 512),  # 4096 tiles: 8 per block
-    (262_144, 64, 3, 132, 373),  # 11 per block, the last block 4
-    (33, 64, 4, 132, 1),
-    (64 * 132 * 4 + 1, 64, 4, 132, 265),  # a tile past one wave: 2 each
-    (262_144, 32, 1, 132, 131),  # compact: 8192 tiles, 63 per block
+@pytest.mark.parametrize("n,per_sm,sms,bands,blocks", [
+    (262_144, 2, 132, 1, 256),  # 4096 tiles: 16 per block
+    (262_144, 1, 132, 2, 66),  # two bands share the SMs: 63 tiles a block
+    (33, 2, 132, 1, 2),  # one tile: one cluster, one block without tiles
+    (64 * 264 + 1, 2, 132, 1, 134),  # a tile past one wave: 133, 2 each
+    (13_413, 2, 132, 1, 210),  # the image cell's 13,413 features
 ])
-def test_reduction_blocks(n, tile, per_sm, sms, blocks):
-    assert wc.reduction_blocks(n, tile, per_sm, sms) == blocks
-    tiles = -(-n // tile)
+def test_reduction_blocks(n, per_sm, sms, bands, blocks):
+    assert wc.reduction_blocks(n, per_sm, sms, bands) == blocks
+    tiles = -(-n // wc.TILE)
     per_block = -(-tiles // blocks)
-    assert blocks <= per_sm * sms and (blocks - 1) * per_block < tiles
+    # whole clusters, every band's blocks resident at once, each block
+    # holding tiles but for the last cluster
+    assert blocks % wc.CLUSTER == 0
+    assert blocks * bands <= max(per_sm * sms, wc.CLUSTER * bands)
+    assert (blocks - wc.CLUSTER) * per_block < tiles
+
+
+# Blocks of 512 threads (16 warps) that one SM's 233,472 bytes of shared
+# memory hold at the 1080p grid 45x79, each with 1,024 bytes reserved,
+# at most 4 (2,048 threads): JᵀW·s K=2 37,272 B, block diagonal K=2
+# 55,652 B, JᵀW·s K=5 92,412 B, the block diagonal K=5 in bands of 23
+# rows 151,392 B.
+@pytest.mark.parametrize("name,k,nbytes,blocks", [
+    ("window_apply_jtw", 2, 37272, 4), ("window_block_diag", 2, 55652, 4),
+    ("window_apply_jtw", 5, 92412, 2), ("window_block_diag", 5, 151392, 1)])
+def test_reduction_blocks_per_sm_by_smem_at_1080p(name, k, nbytes, blocks):
+    assert wc.reduction_smem_bytes(name, 45, 79, k) == nbytes
+    assert min(233472 // (nbytes + 1024), 4) == blocks
+    assert wc.smem_blocks_per_sm(name, 45, 79, k) == blocks
+    # at least 16 warps an SM
+    assert blocks * wc.THREADS // 32 >= 16
+
+
+@pytest.mark.parametrize("gh,gw,owners", [
+    (16, 16, True), (8, 32, True), (1, 256, True), (16, 17, False),
+    (21, 28, False), (25, 44, False), (45, 79, False)])
+def test_reduction_visit_scheme_by_grid(gh, gw, owners):
+    """Grids of at most 256 knots (the bench's 16x16) take the knot-owner
+    scheme with its masks; larger ones (the pipeline's 25x44 and up) the
+    slot classes, whose block holds no masks."""
+    assert wc.OWNER_KNOTS == 256
+    assert wc.uses_owners(gh, gw) == owners
+    for name, k in REDUCTION_KS:
+        rows = wc.reduction_plan(name, gh, gw, k)
+        masks = 4 * (rows + gw) * 2 if owners else 0
+        assert wc.reduction_smem_bytes(name, gh, gw, k) == 4 * (
+            wc.prep_rows(name, k) * 65 + 128
+            + rows * gw * wc.per_knot(name, k)) + masks
+
+
+def test_reduction_clusters_halve_the_partial_rows():
+    """Blocks come in clusters of two that sum their accumulators into one
+    partial row: the bench problem's 262,144 rows at two blocks an SM
+    write 128 partial rows of the grid, not 256."""
+    assert wc.CLUSTER == 2 and wc.THREADS == 16 * 32 and wc.TILE == 64
+    blocks = wc.reduction_blocks(262_144, 2, 132)
+    assert blocks // wc.CLUSTER == 128

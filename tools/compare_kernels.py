@@ -3,7 +3,7 @@
 card.
 
     python3 tools/compare_kernels.py --other DIR [--kernels NAME,...]
-        [--reps 100] [--rounds 3]
+        [--windows DIR] [--reps 100] [--rounds 3]
 
 ``DIR`` is another checkout of the repository (for example a commit
 unpacked with ``git archive``).  The script loads
@@ -15,12 +15,18 @@ same inputs.  ``--kernels`` picks among ``window_apply_jtw`` and
 
 - Window reductions: the bench problem's ``j_win``, window bases and
   weights (``lm_pcg.compute_blocks`` on ``problems.make_bench_problem``:
-  262,144 rows, 16×16 grid, K = 2), and seeded random inputs with uniform
-  window bases at 16×16 K = 2, 45×79 K = 2 (the pipeline's default grid
-  for a 1080p camera) and 16×16 K = 5, 262,144 observations each.  Printed:
-  whether the trees' outputs are bit-identical (``torch.equal``) and each
-  tree's error against a float64 plain reference (max abs error over the
-  largest reference value).
+  262,144 rows, 16×16 grid, K = 2) and the NoncentralGeneric twin's
+  (``make_noncentral_bench_problem``, K = 5); seeded random inputs with
+  uniform window bases at 16×16 K = 2, 45×79 K = 2 and K = 5 (the
+  pipeline's default grid for a 1080p camera), 16×16 K = 5 and 21×28
+  K = 2 and 5, 262,144 observations each; and, with ``--windows DIR``, every window input
+  saved there by ``tools/reduction_phases.py --capture DIR`` (the
+  pipelines' own ``j_win`` at their pyramid grids).  Printed: whether the
+  trees' outputs are bit-identical (``torch.equal``) and each tree's error
+  against a float64 plain reference (max abs error over the largest
+  reference value); beside JᵀW·s, the time of torch.sparse CSR's
+  J_intrᵀ(W·s) on the same inputs (``chip_smoke.sparse_intrinsics_jacobian``,
+  the library yardstick of ``chip_smoke.py`` [5]).
 - Projections: the bench problem's directions and warm starts (16×16, 4 LM
   iterations), and 262,144 random pixels of a 640×480 pinhole camera on a
   21×28 grid and of a 1920×1080 one on the 45×79 grid, warm starts 2 px
@@ -239,18 +245,46 @@ def projection_sass(cuda_mod):
 # ------------------------------------------------------------ the cases
 
 
-def window_rows(torch, args, wc, other_wc, smi, f32, rng, names):
+def load_windows(torch, directory):
+    """The window inputs saved by ``tools/reduction_phases.py --capture``:
+    ``(label, gh, gw, k, j_win, base_xy, weight)`` per ``*.pt`` file, on
+    the card, in name order."""
+    dev = torch.device("cuda")
+    cases = []
+    for path in sorted(Path(directory).glob("*.pt")):
+        d = torch.load(path, map_location=dev)
+        cases.append((d["label"], d["gh"], d["gw"], d["k"], d["j_win"],
+                      d["base_xy"], d["weight"]))
+    return cases
+
+
+def window_cases(torch, rng, windows=None):
+    """The window reductions' inputs, ``(label, gh, gw, k, j_win, base_xy,
+    weight)``: the central and noncentral bench problems' own, seeded
+    random ones at 16×16, 45×79 and 21×28 for K = 2 and 5 (16×16 K = 2
+    first), and those saved under ``windows``."""
     from camera_calibration_torch import problems
     from camera_calibration_torch.ba import lm_pcg
 
     dev = torch.device("cuda")
-    state, data, _ = problems.make_bench_problem(device=dev)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
     options = lm_pcg.BAOptions(max_pcg_iterations=20, proj_iterations=4)
-    blocks, _ = lm_pcg.compute_blocks(data, state, (data[0].pixel,), options)
-    intr = blocks[0].intr
-    gh, gw = state.intrinsics[0].grid.shape[:2]
-    cases = [("bench", gh, gw, 2, intr.j_win, intr.base_xy, blocks[0].weight)]
-    for hh, ww, k in ((16, 16, 2), (45, 79, 2), (16, 16, 5)):
+    cases = []
+    for label, make, k in (
+            ("bench", problems.make_bench_problem, 2),
+            ("noncentral bench", problems.make_noncentral_bench_problem, 5)):
+        state, data, _ = make(device=dev)
+        blocks, _ = lm_pcg.compute_blocks(data, state, (data[0].pixel,),
+                                          options)
+        model = state.intrinsics[0]
+        grid = model.grid if hasattr(model, "grid") else model.direction_grid
+        cases.append((label, *grid.shape[:2], k, blocks[0].intr.j_win,
+                      blocks[0].intr.base_xy, blocks[0].weight))
+    for hh, ww, k in ((16, 16, 2), (45, 79, 2), (16, 16, 5), (45, 79, 5),
+                      (21, 28, 2), (21, 28, 5)):
         base = torch.as_tensor(
             np.stack([rng.integers(-3, ww, N_RANDOM),
                       rng.integers(-3, hh, N_RANDOM)], 1),
@@ -258,7 +292,16 @@ def window_rows(torch, args, wc, other_wc, smi, f32, rng, names):
         cases.append(("random", hh, ww, k,
                       f32(rng.normal(0, 1, (32 * k, N_RANDOM))), base,
                       f32(rng.uniform(0, 1, N_RANDOM))))
+    if windows:
+        cases += load_windows(torch, windows)
+    return cases
 
+
+def window_rows(torch, args, wc, other_wc, smi, f32, rng, names):
+    sys.path.insert(0, REPO)
+    from chip_smoke import sparse_intrinsics_jacobian
+
+    cases = window_cases(torch, rng, args.windows)
     rows = []
     for label, hh, ww, k, j_win, base, w in cases:
         ws = f32(rng.normal(0, 1, (j_win.shape[1], 2)))
@@ -288,11 +331,29 @@ def window_rows(torch, args, wc, other_wc, smi, f32, rng, names):
                 **times_in_turns(torch, mine, theirs, args.reps,
                                  args.rounds),
             }
+            lib_txt = ""
+            if name == "window_apply_jtw":
+                # the library yardstick: torch.sparse CSR J_intr^T (the
+                # build is not timed), once a round beside the turns
+                _, jt = sparse_intrinsics_jacobian(torch, j_win, base, hh, ww,
+                                                   k)
+                lib = lambda: jt @ ws.reshape(-1, 1)  # noqa: E731
+                row["library_rel_err"] = _rel(
+                    lib().double().reshape(ref.shape), ref)
+                for key, graph in (("library_ms", False),
+                                   ("library_graph_ms", True)):
+                    row[key] = [time_ms(torch, lib, args.reps, graph)
+                                for _ in range(args.rounds)]
+                lib_txt = (f"; torch.sparse CSR ms "
+                           f"{statistics.median(row['library_ms']):.4f}, "
+                           f"graph_ms "
+                           f"{statistics.median(row['library_graph_ms']):.4f}"
+                           f" (rel err {row['library_rel_err']:.3e})")
             rows.append(row)
             print(f"{row['case']} {name}: bit-identical {row['bit_identical']}"
                   f" (max |diff| {row['max_abs_diff']:.3e}); rel err this "
                   f"{row['rel_err_this']:.3e}, other {row['rel_err_other']:.3e};"
-                  f" {timing_text(row)} on {smi}", flush=True)
+                  f" {timing_text(row)}{lib_txt} on {smi}", flush=True)
     return rows
 
 
@@ -380,6 +441,9 @@ def main() -> int:
     parser.add_argument("--kernels",
                         default=",".join(WINDOW_KERNELS + PROJECTION_KERNELS),
                         help="comma-separated kernels to compare")
+    parser.add_argument("--windows", default=None,
+                        help="a directory of window inputs saved by "
+                        "tools/reduction_phases.py --capture")
     parser.add_argument("--reps", type=int, default=100)
     parser.add_argument("--rounds", type=int, default=3,
                         help="turns of other, this, this, other per method")
