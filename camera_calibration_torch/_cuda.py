@@ -74,8 +74,8 @@ SIGNATURES = {
     # blocks, gh, gw: 1 where the kernel stages its fields in shared memory,
     # 0 where it reads them from device memory
     "cct_project_staged": [_I, _I, _I],
-    # k, gh, gw: the same for cct_window_apply_j's tangent
-    "cct_window_apply_j_staged": [_I, _I, _I],
+    # k, n, out (3 ints): cct_window_apply_j's launch plan
+    "cct_window_apply_j_plan": [_I, _I, _P],
     # k, gh, gw, elem_bytes: blocks of the reduction's partial pass that
     # fit on one SM
     "cct_window_apply_jtw_blocks_per_sm": [_I, _I, _I, _I],
@@ -107,6 +107,8 @@ SM_THREADS = 2048
 launches: collections.Counter = collections.Counter()
 
 _state = {"lib": None}
+# The library's C entries, looked up once each (name -> ctypes function).
+_entries: dict = {}
 
 
 def reset_launches() -> None:
@@ -196,9 +198,13 @@ def lib():
 def launch(name: str, *args, counted: str | None = None) -> None:
     """Call C entry ``cct_<name>`` on the current stream; count it (under
     ``counted``, the kernel variant's name, where given) and raise on a
-    non-zero ``cudaError_t``."""
-    status = getattr(lib(), "cct_" + name)(
-        *args, torch.cuda.current_stream().cuda_stream)
+    non-zero ``cudaError_t``.  The stream is PyTorch's current stream of the
+    current device, read as its raw handle (no Stream object a call)."""
+    entry = _entries.get(name)
+    if entry is None:
+        entry = _entries[name] = getattr(lib(), "cct_" + name)
+    status = entry(*args, torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device()))
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
     launches[counted or name] += 1

@@ -28,6 +28,7 @@ the float32 blocks, as the reference package's step does.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -174,12 +175,30 @@ def _resident_blocks(name, k, gh, gw, device_index, elem_bytes=4):
     return per_sm
 
 
-def apply_j_staged(gh: int, gw: int, k: int) -> bool:
-    """Whether :func:`window_apply_j`'s kernel stages the (gh, gw, K)
-    tangent in shared memory (``cct_window_apply_j_staged``): where it fits
-    one block.  Elsewhere the same kernel (``kStaged = false``) reads it
-    from device memory."""
-    return 4 * gh * gw * k <= _cuda.MAX_SMEM_BYTES
+# The launch plan of :func:`window_apply_j` (``csrc/window_apply_j.cu``):
+# blocks of APPLY_J_THREADS threads; each observation split over
+# APPLY_J_PARTS warps, one per window row, 32 consecutive observations a
+# warp, so APPLY_J_OBS_PER_BLOCK observations a block.  The tangent is read
+# through L1 at every grid: no grid size enters the plan.
+APPLY_J_THREADS = 256
+APPLY_J_PARTS = 4
+APPLY_J_OBS_PER_BLOCK = APPLY_J_THREADS // APPLY_J_PARTS
+
+
+def apply_j_blocks(n: int) -> int:
+    """Blocks :func:`window_apply_j` launches for N observations, at any
+    K and grid."""
+    return -(-n // APPLY_J_OBS_PER_BLOCK)
+
+
+def apply_j_plan_on_card(n: int, k: int) -> dict:
+    """The kernel library's own plan (``cct_window_apply_j_plan``): warps
+    per observation, threads per block, blocks."""
+    out = (ctypes.c_int * 3)()
+    status = _cuda.lib().cct_window_apply_j_plan(k, n, out)
+    if status != 0:
+        raise RuntimeError(f"cct_window_apply_j_plan: CUDA error {status}")
+    return dict(zip(("parts", "threads", "blocks"), out))
 
 
 # ------------------------------ plain versions ------------------------------
@@ -264,18 +283,18 @@ def _check(name, j_win, base_xy, k):
 
 def window_apply_j(j_win, base_xy, tangent):
     """J_intr·v: (N, 2)."""
-    if j_win.device.type == "cpu":
+    dev = j_win.device
+    if dev.type == "cpu":
         return window_apply_j_plain(j_win, base_xy, tangent)
     name = "window_apply_j"
     gh, gw, k = tangent.shape
     n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, tangent=tangent)
-    out = torch.empty((n, 2), dtype=torch.float32, device=j_win.device)
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     if n:
-        elem = j_win.element_size()
         _cuda.launch(name, j_win.data_ptr(), base_xy.data_ptr(),
                      base_xy.stride(0), base_xy.stride(1), tangent.data_ptr(),
-                     n, gh, gw, k, elem, out.data_ptr(),
+                     n, gh, gw, k, j_win.element_size(), out.data_ptr(),
                      counted=_counted(name, j_win))
     return out
 

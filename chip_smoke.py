@@ -11,8 +11,10 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    and prints what ``ptxas -v`` says of each (registers, shared memory,
    spills), and the staged-or-not plan, shared memory, block size,
    blocks per SM and persistent grid of both projection kernels at the
-   bench grid, at 45×79 and at 84×100, and the plan of ``window_apply_j``
-   at K = 5 on 45×79 and 108×108;
+   bench grid, at 45×79 and at 84×100, and the launch plan of
+   ``window_apply_j`` (warps an observation, blocks) at the bench shape,
+   at [7]'s and [9b]'s final grids and at 108×108, each equal to its
+   Python mirror;
 3. holds every kernel against its plain PyTorch version on the card, at the
    shapes of the benchmark problem's main path (262,144 observations, 16×16
    grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera
@@ -31,8 +33,9 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    plans: ``project_blocks`` at the 84×100 grid
    of a 2448×2048 camera (262,144 random pixels; it reads its grid and
    frames from device memory there, while ``project`` still stages its
-   grid) and ``window_apply_j`` at K = 5 on a 108×108 grid (tangent read
-   from device memory), each printing which variant ran;
+   grid), each printing which variant ran, and ``window_apply_j`` at K = 5
+   on a 108×108 grid (a tangent larger than a block's shared memory, read
+   through L1 as at every grid);
 4. drives the main paths, each with the launch counts set to 0 just before
    and read just after: ``optimize`` on the full-size benchmark problem in
    the two-pass and cached-blocks forms, with ``solver="auto"`` (it
@@ -86,7 +89,10 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    three grids; prints each stage's host time, LM iterations and LM it/s
    and the launches per grid; and holds each kernel to its plain version
    and one LM step through the kernels to the plain step at the inputs of
-   each grid's first BA stage;
+   each grid's first BA stage, where it also times ``window_apply_j``
+   (beside torch.sparse CSR's J_intr·v, and L2-cold) and the two
+   reductions (beside torch.sparse CSR's JᵀW·s) on that grid's own
+   ``j_win`` (JSON rows ``<kernel>_pipeline_<grid>``);
 8. detects features in camera images through the port's own entry
    points: ``cli.main`` create-pattern (a 24×24 board of 2 cm squares with
    its central tag), render-synthetic (30 seeded 1920×1080 views by a
@@ -130,7 +136,9 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    kernels; the projection is plain), the float64 polish.  It requires
    the median reprojection error under 0.01 px, the final grid 45×79, the
    three window kernels at each of the six pyramid grids (each against
-   its plain version there) and the line offsets image and lines .obj; it
+   its plain version there; at 45×79 the three also timed as at [7]'s
+   grids, rows ``<kernel>_k5_pipeline_45x79``) and the line offsets image
+   and lines .obj; it
    prints the host seconds of the initialization, the state, each BA stage
    and the polish, and the LM it/s of each BA.  Not the command line's
    defaults: with them (three levels, a 10-iteration polish) this dataset
@@ -256,6 +264,16 @@ PIPELINE_KERNELS = ("project", "project_blocks", "window_apply_j",
 # The three pyramid grids of a 1920×1080 camera at 25 px per cell.
 PIPELINE_GRIDS = ("25x44", "34x59", "45x79")
 PIPELINE_GRID_SHAPES = ((25, 44), (34, 59), (45, 79))
+# window_apply_j's launch plan printed in [2]: (label, N, gh, gw, K) of the
+# bench problem, [7]'s and [9b]'s final grids and the K=5 tangent past one
+# block's shared memory.
+APPLY_J_PLAN_CASES = (("bench", 262_144, 16, 16, 2),
+                      ("[7] final grid", 57_600, 45, 79, 2),
+                      ("[9b] final grid", 9_500, 45, 79, 5),
+                      ("a tangent past a block's shared memory", 262_144,
+                       108, 108, 5))
+APPLY_J_SOURCE = ("camera_calibration_torch/csrc/window_apply_j.cu",
+                  "camera_calibration_tpu/ba/window_pallas.py:133")
 # The reductions' sources and the TPU kernels they replace.
 REDUCTION_SOURCES = {
     "window_apply_jtw": ("camera_calibration_torch/csrc/window_apply_jtw.cu",
@@ -511,13 +529,17 @@ def main() -> int:
                 f"shared, {per_sm} blocks of {cgc.threads(gh_, gw_, blocks)} "
                 f"threads per SM, {nblocks} persistent blocks for "
                 f"{N_PROJECTION} points on {_cuda.num_sms(dev)} SMs")
-    for k_, (gh_, gw_) in ((5, (45, 79)), (5, K5_UNSTAGED_GRID)):
-        staged = wc.apply_j_staged(gh_, gw_, k_)
-        require(_cuda.lib().cct_window_apply_j_staged(k_, gh_, gw_)
-                == int(staged), "the staged plan differs from the C one")
-        log(f"[2] window_apply_j K={k_} at {gh_}x{gw_}: "
-            f"{'staged' if staged else 'unstaged'} tangent "
-            f"({gh_ * gw_ * k_ * 4} B)")
+    for label_, n_, gh_, gw_, k_ in APPLY_J_PLAN_CASES:
+        plan = wc.apply_j_plan_on_card(n_, k_)
+        require(plan == {"parts": wc.APPLY_J_PARTS,
+                         "threads": wc.APPLY_J_THREADS,
+                         "blocks": wc.apply_j_blocks(n_)},
+                f"the window_apply_j plan at {label_} differs from the C "
+                f"one: {plan}")
+        log(f"[2] window_apply_j {label_} ({gh_}x{gw_}, K={k_}, N={n_}): "
+            f"{plan['parts']} warps an observation, {plan['blocks']} blocks "
+            f"of {plan['threads']} threads, the tangent "
+            f"({gh_ * gw_ * k_ * 4} B) read through L1")
     for name in wc.REDUCTIONS:
         for k_ in wc.SUPPORTED_K:
             for gh_, gw_ in ((16, 16),) + PIPELINE_GRID_SHAPES:
@@ -679,9 +701,8 @@ def main() -> int:
                                  device=dev)
     dirs_5, g0_5 = problems.pinhole_projection_inputs(
         mp5, N_PROJECTION, np.random.default_rng(84))
-    require(not cgc.project_staged(*MP5_GRID, blocks=True)
-            and not wc.apply_j_staged(*K5_UNSTAGED_GRID, 5),
-            "the 5 MP cases do not reach the unstaged kernels")
+    require(not cgc.project_staged(*MP5_GRID, blocks=True),
+            "the 5 MP case does not reach the unstaged kernel")
     label_5 = "5 MP {}x{}".format(*MP5_GRID)
     for blocks in (False, True):
         log(f"[3] {'project_blocks' if blocks else 'project'} {label_5}: "
@@ -698,8 +719,9 @@ def main() -> int:
     base108 = torch.as_tensor(
         np.stack([rng.integers(-3, ww5, n_obs), rng.integers(-3, hh5, n_obs)],
                  1), dtype=torch.int32, device=dev)
-    log(f"[3] window_apply_j K=5 at {hh5}x{ww5}: unstaged (tangent read "
-        "from device memory); the reductions in bands")
+    log(f"[3] window_apply_j K=5 at {hh5}x{ww5}: a tangent of "
+        f"{hh5 * ww5 * 5 * 4} B, past one block's shared memory (read through "
+        "L1 as at every grid); the reductions in bands")
     errs108 = check_window(jw108, base108, hh5, ww5, 5,
                            f"random {hh5}x{ww5} K=5")
     unstaged["window_apply_j_k5"] = dict(max_abs=errs108["window_apply_j"])
@@ -1876,8 +1898,9 @@ def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
     for a CentralGeneric camera also one LM step through the kernels
     against the plain step, for a NoncentralGeneric one the K = 5 window
     kernels only (its projection is plain).  At the grids of ``timed``
-    the two reductions are also held bit for bit across band heights and
-    timed (:func:`time_pipeline_reductions`); returns their JSON rows."""
+    J_intr·v is also timed (:func:`time_pipeline_apply_j`) and the two
+    reductions are held bit for bit across band heights and timed
+    (:func:`time_pipeline_reductions`); returns their JSON rows."""
     from camera_calibration_torch import problems
     from camera_calibration_torch.ba import lm_pcg
     from camera_calibration_torch.ba import window_cuda as wc
@@ -1900,6 +1923,10 @@ def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
                          f"pipeline {grid}, {b.intr.j_win.shape[1]} rows",
                          w=b.weight)
         if grid in timed:
+            rows.append(time_pipeline_apply_j(
+                torch, b.intr.j_win, b.intr.base_xy, gh, gw,
+                2 if central else 5, f"{tag} {grid}", per_grid.get(grid, {}),
+                smi))
             rows += time_pipeline_reductions(
                 torch, b.intr.j_win, b.intr.base_xy, b.weight, gh, gw,
                 2 if central else 5, f"{tag} {grid}", per_grid.get(grid, {}),
@@ -1938,6 +1965,62 @@ def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
                 "disagrees with the plain step")
     log(f"{tag} pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def time_pipeline_apply_j(torch, jw, base, gh, gw, k, label, launches, smi):
+    """J_intr·v on a pipeline grid's own ``j_win`` and window bases, with a
+    tangent made from a seed: held against its float64 plain version and
+    bit for bit across two calls, then timed as [5] times the bench rows
+    (events, graph replay, graph replay with L2 flushed), with torch.sparse
+    CSR's J_intr·v beside it (events and graph).  The bound: j_win, the
+    bases and the output once, the tangent once.  Returns one JSON row
+    (``launches``: that grid's count in the pipeline)."""
+    from camera_calibration_torch.ba import window_cuda as wc
+
+    name = "window_apply_j"
+    n = jw.shape[1]
+    rng = np.random.default_rng(gh * 1000 + gw + k)
+    tangent = torch.as_tensor(rng.normal(0, 1, (gh, gw, k)),
+                              dtype=torch.float32, device=jw.device)
+    fn = lambda: wc.window_apply_j(jw, base, tangent)  # noqa: E731
+    got, again = fn(), fn()
+    reference = wc.window_apply_j_plain(jw.double(), base, tangent.double())
+    err = float((got.double() - reference).abs().max())
+    e = err / float(reference.abs().max())
+    require(e <= WINDOW_REL_TOL, f"{name} {label}: rel err {e}")
+    require(bool(torch.equal(got, again)),
+            f"{name} {label}: not bit-identical across runs")
+    j_csr, _ = sparse_intrinsics_jacobian(torch, jw, base, gh, gw, k)
+    lib = lambda: (j_csr @ tangent.reshape(-1, 1)).reshape(n, 2)  # noqa: E731
+    e_lib = rel_err(lib().double(), reference)
+    require(e_lib <= WINDOW_REL_TOL, f"sparse J.v {label}: rel err {e_lib}")
+    plan = wc.apply_j_plan_on_card(n, k)
+    ms = time_ms(torch, fn, reps=100, warmup=5)
+    graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+    cold_ms = cold_graph_ms(torch, fn)
+    plain_ms = time_ms(torch, lambda: wc.window_apply_j_plain(
+        jw, base, tangent), reps=3, warmup=1)
+    library_ms = time_ms(torch, lib, reps=100, warmup=5)
+    library_graph_ms = time_ms(torch, lib, reps=100, warmup=1, graph=True)
+    inside = float(wc._window_index(base, gh, gw)[1].sum())
+    b_ms, b_by = bound_ms(jw.numel() * jw.element_size() + n * 2 * 4
+                          + gh * gw * k * 4 + n * 2 * 4, 4 * k * inside)
+    log(f"    {name} {label} K={k}: {n} rows, rel err {e:.3e}, repeatable; "
+        f"{plan['blocks']} blocks of {plan['threads']} threads; {ms:.4f} ms, "
+        f"graph "
+        f"{graph_ms:.4f} ms, L2-cold graph {cold_ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, torch.sparse {library_ms:.4f} ms (graph "
+        f"{library_graph_ms:.4f}), bound {b_ms:.4f} ms by {b_by}; "
+        f"{launches.get(name, 0)} launches there) on {smi}")
+    return {
+        "name": f"{name}{'_k5' if k == 5 else ''}_pipeline_{gh}x{gw}",
+        "route": "cuda", "source": APPLY_J_SOURCE[0],
+        "replaces": APPLY_J_SOURCE[1], "launches": launches.get(name, 0),
+        "max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+        "cold_graph_ms": cold_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": library_ms,
+        "library_graph_ms": library_graph_ms, "n": n, "pipeline": label,
+        "blocks": plan["blocks"]}
 
 
 def time_pipeline_reductions(torch, jw, base, wt, gh, gw, k, label, launches,

@@ -280,8 +280,8 @@ def test_project_blocks_grid_limit_at_5mp():
     need more shared memory per block than a Hopper block has to stage the
     grid and both frame fields: the plan picks the kernel that reads them
     from device memory there, and the staged one at the 1080p grid (45×79).
-    The same holds for the K=5 tangent of ``window_apply_j`` at 108×108
-    (unstaged) and 45×79 (staged)."""
+    ``window_apply_j`` reads its tangent through L1 at every grid: the K=5
+    tangent at 108×108 (233,280 B) as the one at 45×79."""
     gw, gh = tcal.compute_grid_resolution(2448, 2048, 25)
     assert (gw, gh) == (100, 84)
     assert cgc.staged_bytes(gh, gw, blocks=True) == 302_400
@@ -291,8 +291,9 @@ def test_project_blocks_grid_limit_at_5mp():
     assert cgc.project_staged(gh, gw)  # project alone: 100,800 B
     assert cgc.project_staged(45, 79, blocks=True)
     assert cgc.project_smem_bytes(45, 79, blocks=True) == 127_980
-    assert not wc.apply_j_staged(108, 108, 5)
-    assert wc.apply_j_staged(45, 79, 5)
+    # window_apply_j stages no tangent: its plan takes no grid size, so
+    # 108x108 launches as 45x79 does, one block per 64 observations
+    assert wc.apply_j_blocks(262_144) == 4_096
     with pytest.raises(ValueError, match="shared memory"):
         _cuda.check_smem(cgc.staged_bytes(gh, gw, blocks=True),
                          "project_blocks")

@@ -548,16 +548,52 @@ def test_project_smem_bytes_match_the_kernels(card):
 
 
 def test_apply_j_staged_matches_the_kernel(card):
-    """The Python reckoning of whether window_apply_j stages its tangent
-    equals the library's own, on both sides of the limit."""
-    lib = _cuda.lib()
-    for k, gh, gw in ((2, 16, 16), (2, 170, 170), (2, 171, 171), (5, 45, 79),
-                      (5, 107, 107), (5, 108, 108), (5, 11622, 1),
-                      (5, 11623, 1)):
-        staged = wc.apply_j_staged(gh, gw, k)
-        assert lib.cct_window_apply_j_staged(k, gh, gw) == int(staged)
-    assert not wc.apply_j_staged(108, 108, 5)
-    assert wc.apply_j_staged(107, 107, 5)
+    """The Python mirror of window_apply_j's launch plan (warps per
+    observation, threads, blocks) equals the library's own for both K, from
+    one observation to past a million; no grid size enters it (the tangent
+    is read through L1 at every grid, 108x108 at K=5 included)."""
+    for k in wc.SUPPORTED_K:
+        for n in (1, 63, 64, 65, 9_500, 57_600, 262_144, 1_048_577):
+            assert wc.apply_j_plan_on_card(n, k) == {
+                "parts": wc.APPLY_J_PARTS, "threads": wc.APPLY_J_THREADS,
+                "blocks": wc.apply_j_blocks(n)}, (n, k)
+
+
+@pytest.mark.parametrize("gh,gw,k,n,dtype", [
+    # [7]'s final grid and N, and [9b]'s; windows off every edge
+    (45, 79, 2, 57_600, "float32"), (45, 79, 5, 9_500, "float32"),
+    # a tangent larger than one block's shared memory
+    (108, 108, 5, 20_000, "float32"),
+    # the bench grid at its N and K=5 there, a small grid at N odd
+    (16, 16, 2, 262_144, "float32"), (16, 16, 5, 100_000, "float32"),
+    (7, 9, 2, 100_001, "float32"),
+    # bf16: N odd, N even but not a multiple of 16, a j_win view 2 bytes
+    # past 4-byte alignment
+    (45, 79, 2, 57_601, "bf16"), (45, 79, 5, 9_496, "bf16"),
+    (45, 79, 2, 57_600, "bf16 view"), (16, 16, 5, 100_001, "bf16")])
+def test_apply_j_matches_plain_at_the_pipelines_sizes(card, gh, gw, k, n,
+                                                      dtype):
+    """window_apply_j against its float64 plain version to 1e-4, launched
+    once a call under its element type's counter, bit for bit the same on
+    a second call and with the tangent in a view 4 bytes past 16-byte
+    alignment."""
+    j32, base, tangent, _, _ = _window_inputs(card, gh, gw, k, n, seed=13)
+    j_win = j32 if dtype == "float32" else _bf16_view(j32, dtype == "bf16")
+    key = "window_apply_j" + ("" if dtype == "float32" else "_bf16")
+    ref = wc.window_apply_j_plain(j_win.double(), base, tangent.double())
+    before = _cuda.launches[key]
+    got = wc.window_apply_j(j_win, base, tangent)
+    again = wc.window_apply_j(j_win, base, tangent)
+    torch.cuda.synchronize()
+    assert _cuda.launches[key] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n, 2)
+    assert _rel(got, ref) <= WINDOW_REL
+    assert torch.equal(got, again)
+    buf = torch.empty(tangent.numel() + 1, dtype=torch.float32, device=card)
+    shifted = buf[1:].view(tangent.shape)
+    shifted.copy_(tangent)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(got, wc.window_apply_j(j_win, base, shifted))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -596,7 +632,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                        torch.tensor([[40.0, 40.0]], device=card), (1, 1),
                        (79, 79), (1.0, 1.0), 4, 1e-10)
     j5, b5, t5, _, _ = _window_inputs(card, 108, 108, 5, 64, seed=0)
-    assert not wc.apply_j_staged(108, 108, 5)
     wc.window_apply_j(j5, b5, t5)
     torch.cuda.synchronize()
     assert _cuda.launches["project"] == before.get("project", 0) + 1

@@ -366,3 +366,28 @@ def test_reduction_clusters_halve_the_partial_rows():
     assert wc.CLUSTER == 2 and wc.THREADS == 16 * 32 and wc.TILE == 64
     blocks = wc.reduction_blocks(262_144, 2, 132)
     assert blocks // wc.CLUSTER == 128
+
+
+
+
+
+def test_apply_j_plan_shape():
+    """window_apply_j's blocks: 256 threads, an observation split over four
+    warps (one per window row, both outputs) at K=2 and K=5, so 64
+    observations a block."""
+    assert wc.APPLY_J_THREADS == 256
+    assert wc.APPLY_J_PARTS == 4
+    assert wc.APPLY_J_OBS_PER_BLOCK == 64
+
+
+# window_apply_j's blocks, counted by hand: one per 64 observations at any
+# K and grid (the tangent is read through L1, so no grid size enters the
+# plan).
+@pytest.mark.parametrize("n,blocks", [
+    (262_144, 4_096),  # the bench problem (16x16), and 108x108 at K=5
+    (57_600, 900),  # [7]'s pyramid grids, 25x44 to 45x79
+    (9_500, 149),  # [9b]'s 45x79: 148 full blocks and 28 observations
+    (1, 1), (64, 1), (65, 2),
+])
+def test_apply_j_plan(n, blocks):
+    assert wc.apply_j_blocks(n) == blocks

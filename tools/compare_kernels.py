@@ -9,9 +9,21 @@ card.
 unpacked with ``git archive``).  The script loads
 ``camera_calibration_torch`` from both trees, builds both kernel libraries
 (each into its own ``_build``), and runs the chosen kernels of both on the
-same inputs.  ``--kernels`` picks among ``window_apply_jtw`` and
-``window_block_diag`` (the window reductions) and ``project`` and
-``project_blocks`` (the projections); all four by default.
+same inputs.  ``--kernels`` picks among ``window_apply_j`` (J_intr·v),
+``window_apply_jtw`` and ``window_block_diag`` (the window reductions) and
+``project`` and ``project_blocks`` (the projections); all five by default.
+
+- J_intr·v: the bench problem's ``j_win`` and window bases (K = 2) and the
+  NoncentralGeneric twin's (K = 5), both also rounded to bfloat16; seeded
+  random inputs at 45×79 K = 2 and K = 5 and 108×108 K = 5 (a tangent
+  larger than one block's shared memory), 262,144 observations each; and
+  the ``--windows`` captures; each with a seeded tangent.  Printed:
+  whether the trees' outputs are bit-identical, each tree's error against
+  the float64 plain version, this tree's launch plan (warps an
+  observation, threads, blocks), both trees' times (below) and
+  L2-cold graph time (``cold_graph_ms``, as ``chip_smoke.cold_graph_ms``),
+  and beside them torch.sparse CSR's J_intr·v on the same inputs (for a
+  bf16 ``j_win``, the same bf16 matrix where torch.sparse takes one).
 
 - Window reductions: the bench problem's ``j_win``, window bases and
   weights (``lm_pcg.compute_blocks`` on ``problems.make_bench_problem``:
@@ -69,6 +81,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "camera_calibration_torch"
 N_RANDOM = 262_144
+APPLY_J = "window_apply_j"
 WINDOW_KERNELS = ("window_apply_jtw", "window_block_diag")
 PROJECTION_KERNELS = ("project", "project_blocks")
 PROJ_ITERATIONS = 4
@@ -138,14 +151,19 @@ def host_us(torch, fn, reps):
     return (t1 - t0) / reps * 1e6
 
 
-def times_in_turns(torch, mine, theirs, reps, rounds):
+def times_in_turns(torch, mine, theirs, reps, rounds, cold=False):
     """Every method, each in ``rounds`` turns of other, this, this, other:
-    events (``ms``), graph replay (``graph_ms``) and the host's time per
-    call (``host_us``)."""
+    events (``ms``), graph replay (``graph_ms``), the host's time per call
+    (``host_us``) and, with ``cold``, graph replay with the L2 cache
+    flushed before each call (``cold_graph_ms``, ``chip_smoke``'s)."""
     times = {}
     methods = (("ms", lambda f: time_ms(torch, f, reps, False)),
                ("graph_ms", lambda f: time_ms(torch, f, reps, True)),
                ("host_us", lambda f: host_us(torch, f, reps)))
+    if cold:
+        from chip_smoke import cold_graph_ms
+
+        methods += (("cold_graph_ms", lambda f: cold_graph_ms(torch, f)),)
     for key, timed in methods:
         t_this, t_other = [], []
         for _ in range(rounds):
@@ -163,7 +181,8 @@ def timing_text(row):
     return "; ".join(
         f"{key} this {side(row[key + '_this'])}, other "
         f"{side(row[key + '_other'])}"
-        for key in ("ms", "graph_ms", "host_us"))
+        for key in ("ms", "graph_ms", "host_us", "cold_graph_ms")
+        if key + "_this" in row)
 
 
 # ----------------------------------------------------------------- SASS
@@ -258,19 +277,13 @@ def load_windows(torch, directory):
     return cases
 
 
-def window_cases(torch, rng, windows=None):
-    """The window reductions' inputs, ``(label, gh, gw, k, j_win, base_xy,
-    weight)``: the central and noncentral bench problems' own, seeded
-    random ones at 16×16, 45×79 and 21×28 for K = 2 and 5 (16×16 K = 2
-    first), and those saved under ``windows``."""
+def bench_windows(torch):
+    """The central and noncentral bench problems' window inputs,
+    ``(label, gh, gw, k, j_win, base_xy, weight)``."""
     from camera_calibration_torch import problems
     from camera_calibration_torch.ba import lm_pcg
 
     dev = torch.device("cuda")
-
-    def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
     options = lm_pcg.BAOptions(max_pcg_iterations=20, proj_iterations=4)
     cases = []
     for label, make, k in (
@@ -283,6 +296,20 @@ def window_cases(torch, rng, windows=None):
         grid = model.grid if hasattr(model, "grid") else model.direction_grid
         cases.append((label, *grid.shape[:2], k, blocks[0].intr.j_win,
                       blocks[0].intr.base_xy, blocks[0].weight))
+    return cases
+
+
+def window_cases(torch, rng, windows=None):
+    """The window reductions' inputs, ``(label, gh, gw, k, j_win, base_xy,
+    weight)``: the central and noncentral bench problems' own, seeded
+    random ones at 16×16, 45×79 and 21×28 for K = 2 and 5 (16×16 K = 2
+    first), and those saved under ``windows``."""
+    dev = torch.device("cuda")
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    cases = bench_windows(torch)
     for hh, ww, k in ((16, 16, 2), (45, 79, 2), (16, 16, 5), (45, 79, 5),
                       (21, 28, 2), (21, 28, 5)):
         base = torch.as_tensor(
@@ -354,6 +381,87 @@ def window_rows(torch, args, wc, other_wc, smi, f32, rng, names):
                   f" (max |diff| {row['max_abs_diff']:.3e}); rel err this "
                   f"{row['rel_err_this']:.3e}, other {row['rel_err_other']:.3e};"
                   f" {timing_text(row)}{lib_txt} on {smi}", flush=True)
+    return rows
+
+
+def apply_j_cases(torch, rng, windows=None):
+    """J_intr·v's inputs, ``(label, gh, gw, k, j_win, base_xy)``: the
+    central and noncentral bench problems' own (float32 and rounded to
+    bfloat16), seeded random ones at 45×79 K = 2 and 5 and 108×108 K = 5,
+    and those saved under ``windows``."""
+    dev = torch.device("cuda")
+    cases = []
+    for label, hh, ww, k, j_win, base, _ in bench_windows(torch):
+        cases += [(label, hh, ww, k, j_win, base),
+                  (label + " bf16", hh, ww, k, j_win.bfloat16(), base)]
+    for hh, ww, k in ((45, 79, 2), (45, 79, 5), (108, 108, 5)):
+        base = torch.as_tensor(
+            np.stack([rng.integers(-3, ww, N_RANDOM),
+                      rng.integers(-3, hh, N_RANDOM)], 1),
+            dtype=torch.int32, device=dev)
+        cases.append(("random", hh, ww, k, torch.as_tensor(
+            rng.normal(0, 1, (32 * k, N_RANDOM)), dtype=torch.float32,
+            device=dev), base))
+    if windows:
+        cases += [c[:6] for c in load_windows(torch, windows)]
+    return cases
+
+
+def apply_j_rows(torch, args, wc, other_wc, smi, rng):
+    sys.path.insert(0, REPO)
+    from chip_smoke import sparse_intrinsics_jacobian
+
+    rows = []
+    for label, hh, ww, k, j_win, base in apply_j_cases(torch, rng,
+                                                        args.windows):
+        n = int(j_win.shape[1])
+        tangent = torch.as_tensor(rng.normal(0, 1, (hh, ww, k)),
+                                  dtype=torch.float32, device=j_win.device)
+        ref = wc.window_apply_j_plain(j_win.double(), base, tangent.double())
+        mine = lambda: wc.window_apply_j(j_win, base, tangent)  # noqa: E731
+        theirs = lambda: other_wc.window_apply_j(  # noqa: E731
+            j_win, base, tangent)
+        got, old = mine(), theirs()
+        torch.cuda.synchronize()
+        plan = wc.apply_j_plan_on_card(n, k)
+        row = {
+            "case": f"{label} {hh}x{ww} K={k}", "op": APPLY_J, "n": n,
+            "plan": plan,
+            "bit_identical": bool(torch.equal(got, old)),
+            "max_abs_diff": float((got - old).abs().max()),
+            "rel_err_this": _rel(got.double(), ref),
+            "rel_err_other": _rel(old.double(), ref),
+            **times_in_turns(torch, mine, theirs, args.reps, args.rounds,
+                             cold=True),
+        }
+        # the library yardstick: torch.sparse CSR J_intr (the build is not
+        # timed), once a round beside the turns
+        lib_txt = ""
+        try:
+            j_csr, _ = sparse_intrinsics_jacobian(torch, j_win, base, hh, ww,
+                                                  k)
+            vec = tangent.to(j_win.dtype).reshape(-1, 1)
+            lib = lambda: j_csr @ vec  # noqa: E731
+            row["library_rel_err"] = _rel(
+                lib().double().reshape(ref.shape), ref)
+        except (RuntimeError, NotImplementedError) as exc:
+            lib_txt = f"; torch.sparse takes no such CSR product: {exc}"
+        else:
+            for key, graph in (("library_ms", False),
+                               ("library_graph_ms", True)):
+                row[key] = [time_ms(torch, lib, args.reps, graph)
+                            for _ in range(args.rounds)]
+            lib_txt = (f"; torch.sparse CSR ms "
+                       f"{statistics.median(row['library_ms']):.4f}, "
+                       f"graph_ms "
+                       f"{statistics.median(row['library_graph_ms']):.4f}"
+                       f" (rel err {row['library_rel_err']:.3e})")
+        rows.append(row)
+        print(f"{row['case']} {APPLY_J} (N = {n}; plan {plan})"
+              f": bit-identical {row['bit_identical']} (max |diff| "
+              f"{row['max_abs_diff']:.3e}); rel err this "
+              f"{row['rel_err_this']:.3e}, other {row['rel_err_other']:.3e};"
+              f" {timing_text(row)}{lib_txt} on {smi}", flush=True)
     return rows
 
 
@@ -439,7 +547,8 @@ def main() -> int:
     parser.add_argument("--other", required=True,
                         help="another checkout of the repository")
     parser.add_argument("--kernels",
-                        default=",".join(WINDOW_KERNELS + PROJECTION_KERNELS),
+                        default=",".join((APPLY_J,) + WINDOW_KERNELS
+                                         + PROJECTION_KERNELS),
                         help="comma-separated kernels to compare")
     parser.add_argument("--windows", default=None,
                         help="a directory of window inputs saved by "
@@ -449,7 +558,8 @@ def main() -> int:
                         help="turns of other, this, this, other per method")
     args = parser.parse_args()
     names = [k for k in args.kernels.split(",") if k]
-    unknown = set(names) - set(WINDOW_KERNELS + PROJECTION_KERNELS)
+    unknown = set(names) - set((APPLY_J,) + WINDOW_KERNELS
+                               + PROJECTION_KERNELS)
     if unknown:
         parser.error(f"unknown kernels {sorted(unknown)}")
 
@@ -481,6 +591,8 @@ def main() -> int:
     result = {"card": smi, "rows": []}
     win = [k for k in names if k in WINDOW_KERNELS]
     proj = [k for k in names if k in PROJECTION_KERNELS]
+    if APPLY_J in names:
+        result["rows"] += apply_j_rows(torch, args, wc, other_wc, smi, rng)
     if win:
         result["rows"] += window_rows(torch, args, wc, other_wc, smi, f32,
                                       rng, win)
