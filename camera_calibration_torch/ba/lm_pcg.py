@@ -47,6 +47,7 @@ import warnings
 import numpy as np
 import torch
 
+from camera_calibration_torch import tracing
 from camera_calibration_torch.ba import residuals as res
 from camera_calibration_torch.ba import window_cuda
 from camera_calibration_torch.ba.dataset import (
@@ -267,29 +268,38 @@ def _flat_cg(matvec_flat, precond_flat, b_flat, options, x0=None):
     The loop test ``|r| > tol`` is read on the host, so each iteration syncs
     the host with the device once.
     """
+    def matvec(v):
+        with tracing.span("cg.matvec"):
+            return matvec_flat(v)
+
+    def precond(v):
+        with tracing.span("cg.precond"):
+            return precond_flat(v)
+
     if x0 is None:
         x = torch.zeros_like(b_flat)
         r = b_flat
     else:
         # Guarded warm start: after a large accepted step the previous
         # delta can be a worse iterate than zero; then start cold.
-        r0 = b_flat - matvec_flat(x0)
-        if bool(torch.dot(r0, r0) <= torch.dot(b_flat, b_flat)):
+        r0 = b_flat - matvec(x0)
+        if tracing.read("cg.warm_guard",
+                        torch.dot(r0, r0) <= torch.dot(b_flat, b_flat)):
             x, r = x0, r0
         else:
             x, r = torch.zeros_like(b_flat), b_flat
-    z = precond_flat(r)
+    z = precond(r)
     p = z
     rz = torch.dot(r, z)
     tol = options.pcg_rel_tolerance * torch.sqrt(torch.dot(b_flat, b_flat))
     k = 0
     while (k < options.max_pcg_iterations
-           and bool(torch.sqrt(torch.dot(r, r)) > tol)):
-        ap = matvec_flat(p)
+           and tracing.read("cg.stop", torch.sqrt(torch.dot(r, r)) > tol)):
+        ap = matvec(p)
         alpha = rz / torch.clamp_min(torch.dot(p, ap), 1e-35)
         x = x + alpha * p
         r = r - alpha * ap
-        z = precond_flat(r)
+        z = precond(r)
         rz_new = torch.dot(r, z)
         beta = rz_new / torch.clamp_min(rz, 1e-35)
         p = z + beta * p
@@ -866,33 +876,41 @@ def _solve_step(data, blocks, state, lam, options, x0=None):
 
     Returns (delta, pcg_iters, lam, grad)."""
     check_options(options)
-    mask = fix_gauge_mask(state, options.freeze)
-    grad = _masked(apply_jtw(data, blocks, [b.r for b in blocks], state), mask)
-    block_diag = jtwj_block_diag(data, blocks, state)
+    with tracing.span("lm.solve"):
+        with tracing.span("solve.rhs"):
+            mask = fix_gauge_mask(state, options.freeze)
+            grad = _masked(apply_jtw(data, blocks, [b.r for b in blocks],
+                                     state), mask)
+            block_diag = jtwj_block_diag(data, blocks, state)
 
-    # λ init from the mean scalar diagonal of the blocks
-    rig_b, cam_b, pts_b, intr_b = block_diag
-    diag_sum = sum(torch.diagonal(x, dim1=-2, dim2=-1).sum()
-                   for x in (rig_b, cam_b, pts_b) + tuple(intr_b))
-    n_params = sum(x.numel() for x in zero_tangent(state).leaves())
-    lam = torch.where(lam < 0, options.lambda_initial_factor * diag_sum / n_params,
-                      lam)
+            # λ init from the mean scalar diagonal of the blocks
+            rig_b, cam_b, pts_b, intr_b = block_diag
+            diag_sum = sum(torch.diagonal(x, dim1=-2, dim2=-1).sum()
+                           for x in (rig_b, cam_b, pts_b) + tuple(intr_b))
+            n_params = sum(x.numel() for x in zero_tangent(state).leaves())
+            lam = torch.where(
+                lam < 0, options.lambda_initial_factor * diag_sum / n_params,
+                lam)
 
-    # Block elimination needs the eliminated group free; with it frozen the
-    # full-system solve runs (reference package lm_pcg.py:1079-1104).
-    args = (data, blocks, state, grad, block_diag, lam, mask, options)
-    frozen = set(options.freeze)
-    if options.solver == "schur" and "points" not in frozen:
-        delta, pcg_iters = schur_pcg_solve(*args, eliminate="points", x0=x0)
-    elif options.solver == "schur_poses" and "poses" not in frozen:
-        delta, pcg_iters = schur_pcg_solve(*args, eliminate="poses", x0=x0)
-    elif options.solver == "schur_direct" and "poses" not in frozen:
-        delta, pcg_iters = schur_direct_solve(*args, eliminate="poses")
-    elif (options.solver == "schur_direct_points"
-          and "points" not in frozen):
-        delta, pcg_iters = schur_direct_solve(*args, eliminate="points")
-    else:
-        delta, pcg_iters = pcg_solve(*args, x0=x0)
+        # Block elimination needs the eliminated group free; with it frozen
+        # the full-system solve runs (reference package lm_pcg.py:1079-1104).
+        args = (data, blocks, state, grad, block_diag, lam, mask, options)
+        frozen = set(options.freeze)
+        with tracing.span("solve.pcg"):
+            if options.solver == "schur" and "points" not in frozen:
+                delta, pcg_iters = schur_pcg_solve(*args, eliminate="points",
+                                                   x0=x0)
+            elif options.solver == "schur_poses" and "poses" not in frozen:
+                delta, pcg_iters = schur_pcg_solve(*args, eliminate="poses",
+                                                   x0=x0)
+            elif options.solver == "schur_direct" and "poses" not in frozen:
+                delta, pcg_iters = schur_direct_solve(*args, eliminate="poses")
+            elif (options.solver == "schur_direct_points"
+                  and "points" not in frozen):
+                delta, pcg_iters = schur_direct_solve(*args,
+                                                      eliminate="points")
+            else:
+                delta, pcg_iters = pcg_solve(*args, x0=x0)
     return delta, pcg_iters, lam, grad
 
 
@@ -938,25 +956,27 @@ def lm_step(state, warm_xy, lam, data, options: BAOptions, blocks=None,
     delta, pcg_iters, lam, grad = _solve_step(data, blocks, state, lam,
                                               options, x0=x0)
     test_state = apply_freeze(state, retract(state, delta), options.freeze)
-    test_blocks, warm2 = compute_blocks(data, test_state, warm_xy, options)
-    old_sum, new_sum, full_cost, new_full_cost = _paired_sums(
-        [b.cost for b in blocks], [b.valid for b in blocks],
-        [b.cost for b in test_blocks], [b.valid for b in test_blocks],
-        state.points.dtype, state.points.device, data)
-    accept = bool(new_sum < old_sum)
-    if accept:
-        state, blocks, warm = test_state, test_blocks, warm2
-    else:
-        warm = warm_xy
-    if options.lambda_schedule == "gain_ratio":
-        # ρ = actual/predicted reduction, L(0) − L(δ) = ½ δᵀ(λδ − g)
-        pred = 0.5 * delta.dot(delta.map(lambda d, g: lam * d - g, grad))
-        rho = (old_sum - new_sum) / torch.clamp_min(pred, 1e-30)
-        fac = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-        lam = lam * fac if accept else 2.0 * lam
-    else:
-        lam = 0.5 * lam if accept else 2.0 * lam
-    lam = torch.clamp_min(lam, options.lambda_min)
+    with tracing.span("lm.cost"):
+        test_blocks, warm2 = compute_blocks(data, test_state, warm_xy, options)
+    with tracing.span("lm.accept"):
+        old_sum, new_sum, full_cost, new_full_cost = _paired_sums(
+            [b.cost for b in blocks], [b.valid for b in blocks],
+            [b.cost for b in test_blocks], [b.valid for b in test_blocks],
+            state.points.dtype, state.points.device, data)
+        accept = tracing.read("lm.accept", new_sum < old_sum)
+        if accept:
+            state, blocks, warm = test_state, test_blocks, warm2
+        else:
+            warm = warm_xy
+        if options.lambda_schedule == "gain_ratio":
+            # ρ = actual/predicted reduction, L(0) − L(δ) = ½ δᵀ(λδ − g)
+            pred = 0.5 * delta.dot(delta.map(lambda d, g: lam * d - g, grad))
+            rho = (old_sum - new_sum) / torch.clamp_min(pred, 1e-30)
+            fac = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+            lam = lam * fac if accept else 2.0 * lam
+        else:
+            lam = 0.5 * lam if accept else 2.0 * lam
+        lam = torch.clamp_min(lam, options.lambda_min)
     if not accept:
         # the retry after a rejected step solves from scratch
         delta = delta.map(torch.zeros_like)
@@ -966,21 +986,25 @@ def lm_step(state, warm_xy, lam, data, options: BAOptions, blocks=None,
 
 def _lm_step_two_pass(state, warm_xy, lam, data, options: BAOptions):
     """One LM iteration, classic two-pass form (blocks + cost-only)."""
-    blocks, warm1 = compute_blocks(data, state, warm_xy, options)
+    with tracing.span("lm.blocks"):
+        blocks, warm1 = compute_blocks(data, state, warm_xy, options)
     delta, pcg_iters, lam, _ = _solve_step(data, blocks, state, lam, options)
     test_state = apply_freeze(state, retract(state, delta), options.freeze)
-    test_costs, test_valids, warm2 = total_cost(data, test_state, warm1, options)
-    old_sum, new_sum, full_cost, new_full_cost = _paired_sums(
-        [b.cost for b in blocks], [b.valid for b in blocks],
-        test_costs, test_valids, state.points.dtype, state.points.device,
-        data)
-    accept = bool(new_sum < old_sum)
-    if accept:
-        state, warm = test_state, warm2
-    else:
-        warm = warm1
-    lam = torch.clamp_min(0.5 * lam if accept else 2.0 * lam,
-                          options.lambda_min)
+    with tracing.span("lm.cost"):
+        test_costs, test_valids, warm2 = total_cost(data, test_state, warm1,
+                                                    options)
+    with tracing.span("lm.accept"):
+        old_sum, new_sum, full_cost, new_full_cost = _paired_sums(
+            [b.cost for b in blocks], [b.valid for b in blocks],
+            test_costs, test_valids, state.points.dtype, state.points.device,
+            data)
+        accept = tracing.read("lm.accept", new_sum < old_sum)
+        if accept:
+            state, warm = test_state, warm2
+        else:
+            warm = warm1
+        lam = torch.clamp_min(0.5 * lam if accept else 2.0 * lam,
+                              options.lambda_min)
     return (state, warm, lam, accept, full_cost, new_full_cost, pcg_iters,
             old_sum, new_sum)
 
@@ -1003,15 +1027,21 @@ def make_lm_scan(options: BAOptions, n_steps: int):
     check_options(options)
 
     def scanned(state, warm, lam, data):
-        blocks, warm = compute_blocks(data, state, warm, options)
+        with tracing.span("lm.blocks"):
+            blocks, warm = compute_blocks(data, state, warm, options)
         delta = zero_tangent(state)
         outs = tuple([] for _ in range(6))
         for _ in range(int(n_steps)):
-            (state, warm, lam, accept, cost, new_cost, iters, p_old, p_new,
-             blocks, delta) = lm_step(state, warm, lam, data, options, blocks,
-                                      prev_delta=delta)
-            for lst, v in zip(outs, (accept, float(cost), float(new_cost),
-                                     iters, float(p_old), float(p_new))):
+            with tracing.span("lm.iter"):
+                (state, warm, lam, accept, cost, new_cost, iters, p_old,
+                 p_new, blocks, delta) = lm_step(state, warm, lam, data,
+                                                 options, blocks,
+                                                 prev_delta=delta)
+                cost, new_cost, p_old, p_new = (
+                    tracing.read("lm.history", x)
+                    for x in (cost, new_cost, p_old, p_new))
+            for lst, v in zip(outs, (accept, cost, new_cost, iters, p_old,
+                                     p_new)):
                 lst.append(v)
         return state, warm, lam, outs
 
@@ -1061,7 +1091,8 @@ def resolve_solver(options: BAOptions, state: BAState,
 
 def _profiled(profile_dir, device):
     """A context that records the LM loop with torch.profiler (the card's
-    activity too when the state is on the card) and writes the trace to
+    activity too when the state is on the card), the program's spans as its
+    user annotations (``tracing.annotated``), and writes the trace to
     ``profile_dir/lm_trace.json``; a no-op without ``profile_dir``."""
     if not profile_dir:
         return contextlib.nullcontext()
@@ -1073,7 +1104,7 @@ def _profiled(profile_dir, device):
 
     @contextlib.contextmanager
     def run():
-        with profile(activities=activities) as prof:
+        with profile(activities=activities) as prof, tracing.annotated():
             yield
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "lm_trace.json"))
@@ -1140,18 +1171,27 @@ def optimize(
     stop = False
     report = OptimizationReport()
     t_run0 = time.perf_counter()
-    with _profiled(options.profile_dir, dev):
+    # one lm.iter span a two-pass step; a scan call is lm.scan, its steps
+    # lm.iter
+    iter_span = "lm.scan" if k > 1 else "lm.iter"
+    with _profiled(options.profile_dir, dev), \
+            tracing.span("ba.solve", solve=True):
         while it < options.max_lm_iterations and not stop:
             t0 = time.perf_counter()
-            if k > 1:
-                state, warm, lam, outs = step(state, warm, lam, data)
-                entries = list(zip(*outs))
-            else:
-                (state, warm, lam, accept, cost, new_cost, pcg_iters,
-                 p_old, p_new) = step(state, warm, lam, data)
-                entries = [(accept, float(cost), float(new_cost), pcg_iters,
-                            float(p_old), float(p_new))]
-            dt = time.perf_counter() - t0  # the float conversions synced
+            with tracing.span(iter_span):
+                if k > 1:
+                    state, warm, lam, outs = step(state, warm, lam, data)
+                    entries = list(zip(*outs))
+                else:
+                    (state, warm, lam, accept, cost, new_cost, pcg_iters,
+                     p_old, p_new) = step(state, warm, lam, data)
+                    cost, new_cost, p_old, p_new = (
+                        tracing.read("lm.history", x)
+                        for x in (cost, new_cost, p_old, p_new))
+                    entries = [(accept, cost, new_cost, pcg_iters, p_old,
+                                p_new)]
+                lam_read = tracing.read("lm.history", lam)
+            dt = time.perf_counter() - t0  # the history reads synced
             if report.iterations == 0:
                 report.first_call_seconds = dt
             else:
@@ -1166,7 +1206,7 @@ def optimize(
                     "paired_cost": p_old,
                     "paired_new_cost": p_new,
                     "accepted": accept,
-                    "lambda": float(lam),
+                    "lambda": lam_read,
                     "pcg_iterations": pcg_iters,
                 })
                 if callback is not None:

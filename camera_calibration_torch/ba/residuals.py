@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from camera_calibration_torch import tracing
 from camera_calibration_torch.ba import window_cuda
 from camera_calibration_torch.ba.state import (
     BAState, broadcast_rows, transform_to_camera,
@@ -115,8 +116,9 @@ def _noncentral_projection_blocks(model, x_cam, warm_xy, max_proj_iterations):
     """NoncentralGeneric projection + (px, valid, d px / d x_cam, GridIntr
     with K = 5); the window base comes from the window's first knot
     (reference package ``residuals.py:270-285``)."""
-    px, g, pvalid = ncg.project_points(
-        model, x_cam, init_xy=warm_xy, max_iterations=max_proj_iterations)
+    with tracing.span("model.project"):
+        px, g, pvalid = ncg.project_points(
+            model, x_cam, init_xy=warm_xy, max_iterations=max_proj_iterations)
     nb = ncg.projection_blocks(model, g, x_cam)
     first = nb["win_flat"][:, 0, 0]
     gw = model.grid_width
@@ -168,15 +170,16 @@ def segment_blocks(
     x_cam, x_rig = transform_to_camera(
         state, imageset_idx, camera_idx, x, grid_shape=grid_shape
     )
-    if isinstance(model, ncg.NoncentralGenericModel):
-        px, pvalid, a, intr = _noncentral_projection_blocks(
-            model, x_cam, warm_xy, max_proj_iterations)
-    elif protocol.is_grid_model(model):
-        px, pvalid, a, intr = _grid_projection_blocks(
-            model, x_cam, warm_xy, max_proj_iterations, tangent_frames
-        )
-    else:
-        px, pvalid, a, intr = _parametric_projection_blocks(model, x_cam)
+    with tracing.span("model.blocks"):
+        if isinstance(model, ncg.NoncentralGenericModel):
+            px, pvalid, a, intr = _noncentral_projection_blocks(
+                model, x_cam, warm_xy, max_proj_iterations)
+        elif protocol.is_grid_model(model):
+            px, pvalid, a, intr = _grid_projection_blocks(
+                model, x_cam, warm_xy, max_proj_iterations, tangent_frames
+            )
+        else:
+            px, pvalid, a, intr = _parametric_projection_blocks(model, x_cam)
     valid = obs_valid & pvalid
 
     r_c = se3.quat_to_matrix(state.cam_q_rig[camera_idx])  # (n,3,3)
@@ -265,9 +268,10 @@ def segment_cost(
     x_cam, _ = transform_to_camera(
         state, imageset_idx, camera_idx, x, grid_shape=grid_shape
     )
-    px, _, pvalid = protocol.project_points(
-        model, x_cam, init_xy=warm_xy, max_iterations=max_proj_iterations
-    )
+    with tracing.span("model.project"):
+        px, _, pvalid = protocol.project_points(
+            model, x_cam, init_xy=warm_xy, max_iterations=max_proj_iterations
+        )
     valid = obs_valid & pvalid
     r = px - measured_px
     sq = torch.sum(r * r, dim=-1)

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from camera_calibration_torch import _cuda
+from camera_calibration_torch import _cuda, tracing
 from camera_calibration_torch.ops import bspline
 from camera_calibration_torch.ops.linalg import solve2x2
 
@@ -123,7 +123,7 @@ def lm_loop_plain(grid, dirs, g0, lo, hi, max_iterations, eps):
     done = torch.zeros(n, dtype=torch.bool, device=grid.device)
     iterations = torch.zeros(n, dtype=torch.int32, device=grid.device)
     for _ in range(int(max_iterations)):
-        if bool(done.all()):
+        if tracing.read("cg.project_plain", done.all()):
             break
         iterations += (~done).to(torch.int32)
         u, du = bspline.eval_surface_with_jac(grid, g)

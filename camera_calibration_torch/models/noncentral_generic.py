@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from camera_calibration_torch import tracing
 from camera_calibration_torch.ops import bspline, manifolds
 from camera_calibration_torch.ops.linalg import solve2x2
 
@@ -187,7 +188,8 @@ def project_points(model: NoncentralGenericModel, points, init_xy=None,
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     it = 0
     # the loop test reads ``done`` on the host once per iteration
-    while it < max_iterations and not bool(done.all()):
+    while (it < max_iterations
+           and not tracing.read("ncg.project", done.all())):
         r, jac = _residual_and_jac(model, g, points)
         cost = torch.sum(r * r, dim=-1)
         h = jac.transpose(1, 2) @ jac

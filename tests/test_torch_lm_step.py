@@ -25,6 +25,7 @@ entry points never drop silently to the CPU.
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -305,7 +306,11 @@ def test_options_ported_since_the_first_slice_run(problem, change, tmp_path):
     assert (h["pcg_iterations"] == 0) == direct
     assert info["report"].as_dict()["iterations"] == 1
     if "profile_dir" in change:
-        assert (tmp_path / "trace" / "lm_trace.json").exists()
+        trace = json.loads((tmp_path / "trace" / "lm_trace.json").read_text())
+        # the program's spans ride in the trace as user annotations
+        marks = {e["name"] for e in trace["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+        assert {"ba.solve", "lm.iter", "lm.solve"} <= marks
 
 
 def test_frozen_eliminated_group_and_other_models_raise(problem):
