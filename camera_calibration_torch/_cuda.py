@@ -30,6 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "project.cu",
+    "project_noncentral.cu",
     "window_apply_j.cu",
     "window_apply_jtw.cu",
     "window_block_diag.cu",
@@ -54,6 +55,12 @@ SIGNATURES = {
     # stream
     "cct_project_blocks": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                            _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    # points, init (or None), dirs, origins, n, gh, gw, min_x, min_y, ext_x,
+    # ext_y, cx, cy, lo_x, lo_y, hi_x, hi_y, iters, eps, px_out, g_out,
+    # cost_out, valid_out, stream
+    "cct_project_noncentral": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                               _F, _F, _F, _F, _F, _F, _I, _F, _P, _P, _P,
+                               _P, _P],
     # jwin, base, base_sn, base_sc, tangent, n, gh, gw, k, elem_bytes, out,
     # stream (elem_bytes: 4 for a float32 j_win, 2 for a bfloat16 one)
     "cct_window_apply_j": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
@@ -74,6 +81,8 @@ SIGNATURES = {
     # blocks, gh, gw: 1 where the kernel stages its fields in shared memory,
     # 0 where it reads them from device memory
     "cct_project_staged": [_I, _I, _I],
+    # gh, gw, out (4 ints): cct_project_noncentral's launch plan
+    "cct_project_noncentral_plan": [_I, _I, _P],
     # k, n, out (3 ints): cct_window_apply_j's launch plan
     "cct_window_apply_j_plan": [_I, _I, _P],
     # k, gh, gw, elem_bytes: blocks of the reduction's partial pass that

@@ -8,7 +8,8 @@ through small cross-product matrices.  The intrinsics block is
 - for a grid model, the sparse 4×4-window knot Jacobian from the
   implicit-function-theorem projection sensitivities (K = 2 per knot for
   CentralGeneric, from ``models/central_generic_cuda.py``; K = 5 for
-  NoncentralGeneric, from ``models/noncentral_generic.py``);
+  NoncentralGeneric, from ``models/noncentral_generic.py`` after the
+  projection loop of ``models/noncentral_generic_cuda.py``);
 - for a parametric model, the dense (2, P) parameter Jacobian from
   forward-mode AD of the closed-form projection (``torch.func.jacfwd``).
 """
@@ -27,6 +28,7 @@ from camera_calibration_torch.ba.state import (
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import central_generic_cuda as cgc
 from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
 from camera_calibration_torch.models import parametric as pm
 from camera_calibration_torch.models import protocol
 from camera_calibration_torch.models.base import replace
@@ -117,8 +119,9 @@ def _noncentral_projection_blocks(model, x_cam, warm_xy, max_proj_iterations):
     with K = 5); the window base comes from the window's first knot
     (reference package ``residuals.py:270-285``)."""
     with tracing.span("model.project"):
-        px, g, pvalid = ncg.project_points(
-            model, x_cam, init_xy=warm_xy, max_iterations=max_proj_iterations)
+        px, g, pvalid = ncgc.project_points(
+            model, x_cam.contiguous(), init_xy=warm_xy.contiguous(),
+            max_iterations=max_proj_iterations)
     nb = ncg.projection_blocks(model, g, x_cam)
     first = nb["win_flat"][:, 0, 0]
     gw = model.grid_width

@@ -61,13 +61,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "spline.cuh"
+
 namespace {
 
-// Shared memory one block may use on Hopper (227 KB), and one SM's (228 KB,
-// of which each resident block takes 1 KB for the system).
-constexpr size_t kMaxSmemBytes = 232448;
-constexpr size_t kSmSmemBytes = 233472;
-constexpr size_t kBlockReservedBytes = 1024;
+using cct::cubic_weight_derivs;
+using cct::cubic_weights;
+using cct::kBlockReservedBytes;
+using cct::kMaxSmemBytes;
+using cct::kSmSmemBytes;
+using cct::persistent_blocks;
+using cct::resident_blocks;
+using cct::safe_floor;
 
 // Bytes of the staged fields: the grid and, for the blocks form, the two
 // frame fields, 12 bytes a knot each.
@@ -114,28 +119,6 @@ struct Args {
   int* base_out;    // (2, N)
 };
 
-constexpr float kSixth = 1.0f / 6.0f;
-
-// Cubic B-spline weights of the fractional part t, with the 1/6 folded into
-// the polynomials: (1-t)^3/6, (3t^3 - 6t^2 + 4)/6, (-3t^3 + 3t^2 + 3t + 1)/6,
-// t^3/6.
-__device__ __forceinline__ void cubic_weights(float t, float w[4]) {
-  const float t2 = t * t, t3 = t2 * t, om = 1.0f - t;
-  w[0] = om * om * om * kSixth;
-  w[1] = 0.5f * t3 - t2 + 2.0f / 3.0f;
-  w[2] = 0.5f * (t + t2 - t3) + kSixth;
-  w[3] = t3 * kSixth;
-}
-
-// d/dt of cubic_weights.
-__device__ __forceinline__ void cubic_weight_derivs(float t, float d[4]) {
-  const float t2 = t * t, om = 1.0f - t;
-  d[0] = -0.5f * om * om;
-  d[1] = 1.5f * t2 - 2.0f * t;
-  d[2] = -1.5f * t2 + t + 0.5f;
-  d[3] = 0.5f * t2;
-}
-
 // 1/x and 1/sqrt(x), one MUFU instruction each (1 ulp, and 2^-22.9
 // relative; denormal inputs read as 0).  The build has no fast-math flag,
 // so `1.0f / x` or `sqrtf` would compile to the IEEE-exact sequence with its
@@ -158,12 +141,6 @@ template <bool kStaged>
 __device__ __forceinline__ float field(const float* __restrict__ p) {
   if (kStaged) return *p;
   return __ldg(p);
-}
-
-// floor(g) held to a range where every window knot is outside the grid
-// (NaN maps to one end), so the integer conversion is always defined.
-__device__ __forceinline__ float safe_floor(float g) {
-  return fminf(fmaxf(floorf(g), -1.0e6f), 1.0e6f);
 }
 
 // dst[i] = src[i] for i < count, four loads in flight per thread.
@@ -411,41 +388,16 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     project_point<kBlocks, kStaged>(a, grid, t1, t2, static_cast<int>(n));
 }
 
-// Sets the kernel's shared-memory size and returns its resident blocks per
-// SM (0 if none fits).
-template <bool kBlocks, int kThreads, bool kStaged>
-int resident_blocks(size_t smem) {
-  if (smem > kMaxSmemBytes) return 0;
-  if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(project_kernel<kBlocks, kThreads, kStaged>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess)
-    return 0;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, project_kernel<kBlocks, kThreads, kStaged>, kThreads,
-          smem) != cudaSuccess)
-    return 0;
-  return blocks;
-}
-
+// Blocks of the kernel resident on one SM at this grid (0 if none fits).
 template <bool kBlocks>
 int blocks_per_sm(int gh, int gw) {
   const size_t smem = smem_bytes(kBlocks, gh, gw);
   if (!staged(kBlocks, gh, gw))
-    return resident_blocks<kBlocks, 256, false>(0);
+    return resident_blocks(project_kernel<kBlocks, 256, false>, 256, 0);
   return threads_per_block(kBlocks, gh, gw) == 256
-             ? resident_blocks<kBlocks, 256, true>(smem)
-             : resident_blocks<kBlocks, 1024, true>(smem);
-}
-
-// The persistent grid: at most the blocks resident on the card at once, and
-// no more than it takes to give every block the same number of tiles (but
-// for the last few).  Mirrored by _cuda.persistent_blocks.
-inline int persistent_blocks(int n, int tile, int per_sm, int sms) {
-  const int tiles = (n - 1) / tile + 1;  // n > 0
-  const int per_block = (tiles + per_sm * sms - 1) / (per_sm * sms);
-  return (tiles + per_block - 1) / per_block;
+             ? resident_blocks(project_kernel<kBlocks, 256, true>, 256, smem)
+             : resident_blocks(project_kernel<kBlocks, 1024, true>, 1024,
+                               smem);
 }
 
 template <bool kBlocks>
@@ -453,10 +405,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.n <= 0) return cudaSuccess;
   const int per_sm = blocks_per_sm<kBlocks>(a.gh, a.gw);
   if (per_sm <= 0) return cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = cct::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(kBlocks, a.gh, a.gw);
   const int threads = threads_per_block(kBlocks, a.gh, a.gw);

@@ -13,8 +13,10 @@ The projection's sensitivities come from the implicit-function theorem at
 the converged pixel, on the window pinned at the converged grid
 coordinates, in closed form.  The reference package computes the same
 derivatives by forward-mode AD (``models/noncentral_generic.py`` there);
-it has no kernel for this model's projection, and neither has the port:
-everything here is plain PyTorch, batched over points.
+it has no kernel for this model's projection.  Everything here is plain
+PyTorch, batched over points; on the card the projection loop runs in one
+kernel instead (``noncentral_generic_cuda``), and :func:`project_points`
+is its reference and the CPU's path.
 """
 
 from __future__ import annotations

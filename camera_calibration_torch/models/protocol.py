@@ -15,6 +15,7 @@ import torch
 
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
 from camera_calibration_torch.models import parametric as pm
 from camera_calibration_torch.models.base import replace
 from camera_calibration_torch.ops import manifolds
@@ -69,11 +70,14 @@ def intrinsics_retract(model, tangent, scale=1.0):
 
 def project_points(model, x_cam, init_xy=None, max_iterations=10):
     """(pixels, aux, valid): aux is the grid coords of a grid model, the
-    pixels of a parametric one."""
+    pixels of a parametric one.  A noncentral model's loop runs in one
+    kernel on the card (``noncentral_generic_cuda``)."""
     require_supported(model)
     if isinstance(model, ncg.NoncentralGenericModel):
-        return ncg.project_points(model, x_cam, init_xy=init_xy,
-                                  max_iterations=max_iterations)
+        return ncgc.project_points(
+            model, x_cam.contiguous(),
+            init_xy=None if init_xy is None else init_xy.contiguous(),
+            max_iterations=max_iterations)
     if is_grid_model(model):
         return cg.project_points(model, x_cam, init_xy=init_xy,
                                  max_iterations=max_iterations)

@@ -39,6 +39,7 @@ from camera_calibration_torch.ba.state import (
 from camera_calibration_torch.config import default_device, host_device
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
 from camera_calibration_torch.models import parametric as pm
 from camera_calibration_torch.models import pinhole
 from camera_calibration_torch.models.base import replace
@@ -145,8 +146,9 @@ def make_noncentral_bench_problem(w=640, h=480, gres=16, n_points=1024,
     model = replace(ncg.from_central(central),
                     point_grid=torch.as_tensor(origins, dtype=dtype,
                                                device=device))
-    pxs, _, valid = ncg.project_points(
-        model, x_cam.to(dtype=dtype, device=device), max_iterations=80)
+    pxs, _, valid = ncgc.project_points(
+        model, x_cam.to(dtype=dtype, device=device).contiguous(),
+        max_iterations=80)
     table = _grid_table(pxs, valid, w, h, n_poses, n_points)
     state = dataclasses.replace(state, intrinsics=(model,))
     state = perturb_noncentral_state(state, seed=seed + 7)

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
+toolkit.  It imports only ``camera_calibration_torch`` and, for one
+row of [5], the benchmark's ``calib_bench`` (never JAX) and:
 
 1. prints the card's name and power limit;
 2. builds the hand-written kernels from ``camera_calibration_torch/csrc``
@@ -14,7 +15,9 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    bench grid, at 45×79 and at 84×100, and the launch plan of
    ``window_apply_j`` (warps an observation, blocks) at the bench shape,
    at [7]'s and [9b]'s final grids and at 108×108, each equal to its
-   Python mirror;
+   Python mirror; and the NoncentralGeneric projection kernel's plan
+   (staged or not, block size, shared memory, blocks per SM) at the same
+   three grids;
 3. holds every kernel against its plain PyTorch version on the card, at the
    shapes of the benchmark problem's main path (262,144 observations, 16×16
    grid), on a non-square 21×28 grid, on the 45×79 grid of a 1080p camera
@@ -42,7 +45,8 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    resolves to ``schur``), ``"schur_direct"``, ``"schur_direct_points"``,
    ``"pcg"``, ``block_chunk``, ``debug_verify`` and ``profile_dir``; and on
    the NoncentralGeneric twin of the bench problem in both step forms
-   (the K = 5 window kernels); on the parametric twins of the bench
+   (the noncentral projection kernel and the K = 5 window kernels); on
+   the parametric twins of the bench
    problem (ThinPrismFisheye, OpenCV, Radial) in both step forms with
    ``solver="auto"`` and ``"schur"``, and the ThinPrismFisheye one with
    ``"schur_direct"``, ``"schur_direct_points"`` and ``"pcg"`` (no grid
@@ -71,7 +75,16 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    K = 2 and 5 (also L2-cold); the LM iterations per second of
    both step forms, of each solver mode, of the noncentral path, of each
    parametric path and of bf16 CG, with the host clock; and the dense
-   direct solve's assembly and Cholesky apart;
+   direct solve's assembly and Cholesky apart; and the NoncentralGeneric
+   projection kernel at the shape of its main path (every slot of one
+   start state of the benchmark's ``ncg1080.ba_final`` deployment, 45×79,
+   1,036,200 points, warm-started from the observed pixels), first held
+   to its plain version at 4 and 50 iterations (valid-mask flips at most
+   1%, pixels within 1e-3 px on the points valid in both but for at most
+   0.1% of them), then timed
+   at 4 iterations with its plain version and its bound (the window
+   evaluations' shared-memory reads and FLOP; JSON row
+   ``project_noncentral``);
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
@@ -132,11 +145,13 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    package's noncentral tests) written to ``dataset.bin``, then ``cli.main
    calibrate --model noncentral_generic --report --num_pyramid_levels 6
    --polish_iterations 60``: the noncentral initialization on the host,
-   the pyramid BA on the card (11×19 up to 45×79; the K = 5 window
-   kernels; the projection is plain), the float64 polish.  It requires
-   the median reprojection error under 0.01 px, the final grid 45×79, the
-   three window kernels at each of the six pyramid grids (each against
-   its plain version there; at 45×79 the three also timed as at [7]'s
+   the pyramid BA on the card (11×19 up to 45×79; the noncentral
+   projection kernel and the K = 5 window kernels), the float64 polish.
+   It requires the median reprojection error under 0.01 px, the final
+   grid 45×79, the projection kernel and the three window kernels at
+   each of the six pyramid grids (each against its plain version there,
+   the projection on the observed rows at 4 iterations; at 45×79 the
+   three window kernels also timed as at [7]'s
    grids, rows ``<kernel>_k5_pipeline_45x79``) and the line offsets image
    and lines .obj; it
    prints the host seconds of the initialization, the state, each BA stage
@@ -193,8 +208,9 @@ toolkit.  It imports only ``camera_calibration_torch`` (never JAX) and:
    CG iteration, the result bit for bit equal to the unsharded
    ``optimize``, the LM it/s of both and the time of one all-reduce;
 13. prints one JSON line listing every kernel (with its launches per
-   pipeline grid of [7], of [9a], of [12c], for the K = 5 window rows of
-   [9b], for ``project`` of each [10] run, and per step form of [12d]),
+   pipeline grid of [7], of [9a], of [12c], for the K = 5 window rows and
+   ``project_noncentral`` of [9b], for ``project`` of each [10] run, and
+   per step form of [12d]),
    the ``nvidia-smi`` line of the card, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -218,9 +234,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
-# float32 outside the tensor cores.
+# float32 outside the tensor cores; and shared memory, 128 B a clock on each
+# of its 132 SMs at the 1.98 GHz boost clock.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 
 # FLOP per point of csrc/project.cu, counted from its source: one LM
 # iteration (surface + derivatives, 2×2 solve, test-point cost), the final
@@ -228,6 +246,13 @@ PEAK_F32_FLOP_PER_S = 67e12
 FLOP_LM_ITERATION = 550
 FLOP_FINAL_COST = 160
 FLOP_BLOCKS_TAIL = 850
+# Of csrc/project_noncentral.cu, counted from its source: one evaluation at
+# a g (the window with both derivatives, the offset and its 3×2 Jacobian),
+# the 2×2 solve of an iteration, and the shared memory an evaluation reads
+# (16 knots of 6 floats).
+FLOP_NCG_EVALUATION = 690
+FLOP_NCG_SOLVE = 46
+SMEM_BYTES_NCG_EVALUATION = 16 * 24
 
 # Tolerances (see the checks below for the reasons).
 WINDOW_REL_TOL = 1e-4
@@ -238,6 +263,17 @@ STEP_REL_TOL = 1e-3
 
 # Points of the 1080p projection case ([3], [5]): as many as the bench rows.
 N_PROJECTION = 262_144
+# The NoncentralGeneric projection at the shape of its main path ([5]): the
+# benchmark's ncg1080.ba_final deployment (45×79, 1,036,200 slots), one of
+# its start states, warm-started from the observed pixels, as many
+# iterations as its bundle adjustment's blocks and cost passes
+# (BAOptions.proj_iterations), and as many as the other callers on the card
+# default to.  Held to the plain version at the card tests' tolerances
+# (see check_noncentral_projection).
+NCG_CELL, NCG_CELL_SEED = "ncg1080.ba_final", 1
+NCG_ITERATIONS = (4, 50)
+NCG_PX_TOL = 1e-3
+NCG_FLIP_FRACTION = 1e-2
 
 # Grids past one block's shared memory ([3], [5]): the 84×100 grid of a
 # 2448×2048 camera at 25 px a cell, where project_blocks reads its grid and
@@ -340,6 +376,7 @@ NONCENTRAL_SEED, NONCENTRAL_INIT_SEED = 1, 2
 NONCENTRAL_MEDIAN_PX = 0.01
 NONCENTRAL_KERNELS = ("window_apply_j", "window_apply_jtw",
                       "window_block_diag")
+NCG_PROJECTION = "project_noncentral"
 
 
 STEREO_SIZE = (1920, 1080)
@@ -458,12 +495,13 @@ def projection_work(n, grid_bytes, loop_flop, blocks):
             loop_flop + (FLOP_FINAL_COST + FLOP_BLOCKS_TAIL) * n)
 
 
-def bound_ms(nbytes, flops):
-    """The least time for the work: bytes over HBM rate or FLOP over the
-    float32 rate, whichever is larger; and which one it is."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(nbytes, flops, smem_bytes=0):
+    """The least time for the work: bytes over HBM rate, FLOP over the
+    float32 rate or shared-memory reads over their rate, whichever is
+    largest; and which one it is."""
+    return max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+               (flops / PEAK_F32_FLOP_PER_S * 1e3, "operations"),
+               (smem_bytes / PEAK_SMEM_BYTES_PER_S * 1e3, "shared memory"))
 
 
 def rel_err(got, ref):
@@ -497,6 +535,7 @@ def main() -> int:
     from camera_calibration_torch.ba import window_cuda as wc
     from camera_calibration_torch.models import central_generic as cg
     from camera_calibration_torch.models import central_generic_cuda as cgc
+    from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
     from camera_calibration_torch.ops import manifolds
 
     t_start = time.perf_counter()
@@ -529,6 +568,14 @@ def main() -> int:
                 f"shared, {per_sm} blocks of {cgc.threads(gh_, gw_, blocks)} "
                 f"threads per SM, {nblocks} persistent blocks for "
                 f"{N_PROJECTION} points on {_cuda.num_sms(dev)} SMs")
+    for gh_, gw_ in ((16, 16), (45, 79), MP5_GRID):
+        plan = ncgc.plan(gh_, gw_)
+        require(plan["blocks_per_sm"] * plan["threads"] == 1024,
+                f"{NCG_PROJECTION} at {gh_}x{gw_}: {plan}")
+        log(f"[2] {NCG_PROJECTION} at {gh_}x{gw_}: "
+            f"{'staged' if plan['staged'] else 'unstaged'}, "
+            f"{plan['smem_bytes']} B shared, {plan['blocks_per_sm']} blocks "
+            f"of {plan['threads']} threads per SM")
     for label_, n_, gh_, gw_, k_ in APPLY_J_PLAN_CASES:
         plan = wc.apply_j_plan_on_card(n_, k_)
         require(plan == {"parts": wc.APPLY_J_PARTS,
@@ -999,7 +1046,7 @@ def main() -> int:
     report = lm_pcg.verify_cost(verify_state, data, options)
     log(f"    verify_cost after one LM iteration: {json.dumps(report)}")
     nc_launches, _ = drive("noncentral bench, schur", nstate, ndata, forms,
-                           window_kernels)
+                           (NCG_PROJECTION,) + window_kernels)
 
     # The parametric twins of the bench problem: dense intrinsics blocks
     # (einsums), so no grid kernel may launch.
@@ -1392,6 +1439,9 @@ def main() -> int:
             f"{float(iters_hd.float().mean()):.3f} LM iterations each) on "
             f"{smi}")
 
+    # The NoncentralGeneric projection at the shape of its main path.
+    kernels.append(noncentral_projection_row(torch, smi, nc_launches))
+
     # The kernels past their staged plans ([3]): project and project_blocks
     # at the 5 MP grid, J.v at K=5 108x108.
     lo_5, hi_5 = cg._static_clamp_bounds(mp5)
@@ -1575,6 +1625,10 @@ def main() -> int:
         if row["name"] in (k + "_k5" for k in NONCENTRAL_KERNELS):
             row["noncentral_launches"] = {
                 grid: counts.get(row["name"][:-len("_k5")], 0)
+                for grid, counts in nc_run["launches"].items()}
+        if row["name"] == NCG_PROJECTION:
+            row["noncentral_launches"] = {
+                grid: counts.get(NCG_PROJECTION, 0)
                 for grid, counts in nc_run["launches"].items()}
 
     # ------------------------------- 10. stereo depth at 1920x1080
@@ -1897,7 +1951,8 @@ def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
     grid's first BA stage (the observed rows of the grid-layout table);
     for a CentralGeneric camera also one LM step through the kernels
     against the plain step, for a NoncentralGeneric one the K = 5 window
-    kernels only (its projection is plain).  At the grids of ``timed``
+    kernels and the noncentral projection (4 iterations, warm-started from
+    the observed pixels).  At the grids of ``timed``
     J_intr·v is also timed (:func:`time_pipeline_apply_j`) and the two
     reductions are held bit for bit across band heights and timed
     (:func:`time_pipeline_reductions`); returns their JSON rows."""
@@ -1932,6 +1987,11 @@ def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
                 2 if central else 5, f"{tag} {grid}", per_grid.get(grid, {}),
                 smi)
         if not central:
+            x, warm = noncentral_projection_inputs(st0, seg)
+            obs = seg.valid
+            check_noncentral_projection(torch, model, x[obs].contiguous(),
+                                        warm[obs].contiguous(), 4,
+                                        f"pipeline {grid}")
             continue
         d, g0 = problems.bench_projection_inputs(st0, seg)
         obs = seg.valid
@@ -1965,6 +2025,140 @@ def check_pyramid_grids(torch, rec, checks, dev, tag, timed=(), smi=""):
                 "disagrees with the plain step")
     log(f"{tag} pipeline kernel checks in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def noncentral_projection_inputs(state, table):
+    """The NoncentralGeneric projection's inputs on the main path: the
+    camera-frame points (N, 3) of every row of ``table`` and the warm
+    starts (N, 2), the observed pixels."""
+    from camera_calibration_torch.ba.state import (broadcast_rows,
+                                                   transform_to_camera)
+
+    x = broadcast_rows(state.points, table.point, table.grid_shape, 1)
+    x_cam, _ = transform_to_camera(state, table.imageset, table.camera, x,
+                                   grid_shape=table.grid_shape)
+    return x_cam.contiguous(), table.pixel.contiguous()
+
+
+def check_noncentral_projection(torch, model, points, warm, iters, label):
+    """``ncg_projection_kernel`` (one launch) against the plain
+    ``noncentral_generic.project_points`` on the same inputs, on the card.
+    Both run the same float32 iteration and differ by rounding, so the
+    pixels of the points valid in both agree within NCG_PX_TOL (the card
+    tests' tolerance) but for the few where a test met its threshold
+    within rounding: an accept test at a flat cost, or the cost at eps,
+    takes a step in one and not in the other, and from there the point
+    lies wherever that step left it, inside the validity bar.  Such points
+    are held to the share the central projections allow their flips
+    (PROJ_FLIP_FRACTION, at least 8), and valid-mask flips to
+    NCG_FLIP_FRACTION (the card tests').  The largest gap on the points
+    converged in both (final cost below eps) and on all valid in both are
+    printed.  Returns (those two gaps, the flips, the points apart)."""
+    from camera_calibration_torch import _cuda
+    from camera_calibration_torch.models import noncentral_generic as ncg
+    from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
+
+    eps = 1e-10
+    n = points.shape[0]
+    before = _cuda.launches["project_noncentral"]
+    px_k, _, v_k, cost_k = ncgc.project_points_and_cost(model, points, warm,
+                                                        iters, eps)
+    px_p, g_p, v_p = ncg.project_points(model, points, init_xy=warm,
+                                        max_iterations=iters, eps=eps)
+    cost_p = ncg._cost_at(model, g_p, points)
+    torch.cuda.synchronize()
+    require(_cuda.launches["project_noncentral"] == before + 1,
+            f"project_noncentral {label}: not one launch")
+    both = v_k & v_p
+    settled = both & (cost_k < eps) & (cost_p < eps)
+    flips = int((v_k != v_p).sum())
+    gap = (px_k - px_p).abs().amax(dim=1)
+    apart = int((gap[both] > NCG_PX_TOL).sum())
+    err = float(gap[settled].max()) if bool(settled.any()) else 0.0
+    err_valid = float(gap[both].max()) if bool(both.any()) else 0.0
+    log(f"    project_noncentral {label}: {n} points, {iters} iterations, "
+        f"{int(both.sum())} valid in both, {flips} valid-mask flips, "
+        f"{apart} more than {NCG_PX_TOL} px apart; max |Δpx| {err:.3e} on "
+        f"the {int(settled.sum())} converged in both, {err_valid:.3e} on "
+        f"all valid in both")
+    require(flips <= NCG_FLIP_FRACTION * n,
+            f"project_noncentral {label}: {flips} valid-mask flips")
+    require(apart <= max(8, PROJ_FLIP_FRACTION * n),
+            f"project_noncentral {label}: {apart} points more than "
+            f"{NCG_PX_TOL} px apart")
+    return err, err_valid, flips, apart
+
+
+def noncentral_projection_row(torch, smi, launches):
+    """[5]: ``ncg_projection_kernel`` at the shape of its main path: every
+    slot of one start state of NCG_CELL's deployment (45×79, 1,036,200
+    slots), warm-started from the observed pixels.  Held to the plain
+    version at each of NCG_ITERATIONS (:func:`check_noncentral_projection`),
+    then timed at the bundle adjustment's 4 iterations as [5] times the
+    bench rows (events, graph replay, the plain version).  The bound: the
+    window evaluations the points need (one at the start and one an
+    iteration, as many iterations as the plain loop runs each point:
+    ``noncentral_generic_cuda.lm_loop_plain``), their FLOP and shared-memory
+    reads, and the points, warm starts, grids and outputs once through HBM.
+    Returns one JSON row (``launches``: the noncentral path's count in
+    [4])."""
+    from calib_bench import harness
+    from camera_calibration_torch.models import noncentral_generic as ncg
+    from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
+
+    dev = torch.device("cuda")
+    _, _, cfg, mix, units = harness.load_cell(NCG_CELL)
+    job = units.setup(cfg, mix, NCG_CELL_SEED, dev)
+    state = job.starts[NCG_CELL_SEED % len(job.starts)]
+    model = state.intrinsics[0]
+    points, warm = noncentral_projection_inputs(state, job.table)
+    del job
+    n, gh, gw = points.shape[0], model.grid_height, model.grid_width
+    plan = ncgc.plan(gh, gw)
+    log(f"[5] project_noncentral at {NCG_CELL} ({gh}x{gw}, {n} points): "
+        f"{json.dumps(plan)}")
+    checks = {iters: check_noncentral_projection(
+        torch, model, points, warm, iters, f"{NCG_CELL}")
+        for iters in NCG_ITERATIONS}
+    iters = NCG_ITERATIONS[0]
+    done_at = ncgc.lm_loop_plain(model, points, warm, iters)[3]
+    runs = torch.where(done_at >= 0, done_at + 1, iters)
+    evaluations = n + float(runs.sum())
+    b_ms, b_by = bound_ms(
+        n * (3 + 2) * 4 + gh * gw * 6 * 4 + n * (2 + 2 + 1) * 4 + n,
+        FLOP_NCG_EVALUATION * evaluations
+        + FLOP_NCG_SOLVE * float(runs.sum()),
+        SMEM_BYTES_NCG_EVALUATION * evaluations)
+
+    def fn():
+        return ncgc.project_points(model, points, warm, iters)
+
+    def plain():
+        return ncg.project_points(model, points, init_xy=warm,
+                                  max_iterations=iters)
+
+    ms = time_ms(torch, fn, reps=100, warmup=5)
+    graph_ms = time_ms(torch, fn, reps=100, warmup=1, graph=True)
+    plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+    ran = {str(k): int((runs == k).sum()) for k in range(1, iters + 1)}
+    log(f"[5] project_noncentral at {NCG_CELL}, {iters} iterations: "
+        f"{ms:.4f} ms, graph {graph_ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by}; {evaluations:.0f} window "
+        f"evaluations, points by iterations run {json.dumps(ran)}; "
+        f"{launches.get('project_noncentral', 0)} launches on its path) on "
+        f"{smi}")
+    return {
+        "name": "project_noncentral", "route": "cuda",
+        "source": "camera_calibration_torch/csrc/project_noncentral.cu",
+        "replaces": None, "launches": launches.get("project_noncentral", 0),
+        "max_abs_err": checks[iters][0], "ms": ms, "graph_ms": graph_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "n": n, "grid": f"{gh}x{gw}",
+        "iterations": iters, "plan": plan,
+        "checks": {str(k): dict(zip(("max_abs_px_converged",
+                                     "max_abs_px_valid", "flips",
+                                     "apart"), v))
+                   for k, v in checks.items()}}
 
 
 def time_pipeline_apply_j(torch, jw, base, gh, gw, k, label, launches, smi):
@@ -2486,11 +2680,12 @@ def noncentral_pipeline(torch, smi, checks, device=None):
     --model noncentral_generic --report --num_pyramid_levels
     NONCENTRAL_LEVELS --polish_iterations NONCENTRAL_POLISH``: the
     noncentral initialization on the host, the
-    initial state and the pyramid BA on the card (the three K = 5 window
-    kernels; the projection is plain), the float64 polish on the CPU.
-    Gates: median < NONCENTRAL_MEDIAN_PX, the final grid 45×79, the three
-    window kernels at each pyramid grid (and each against its plain
-    version there), no projection kernel, the line offsets image and the
+    initial state and the pyramid BA on the card (the noncentral
+    projection kernel and the three K = 5 window kernels), the float64
+    polish on the CPU.  Gates: median < NONCENTRAL_MEDIAN_PX, the final
+    grid 45×79, the noncentral projection kernel and the three window
+    kernels at each pyramid grid (and each against its plain version
+    there), no central projection kernel, the line offsets image and the
     lines .obj written; the metric scale is printed.  ``device``: the card
     by default."""
     from camera_calibration_torch import _cuda, cli, problems
@@ -2532,11 +2727,13 @@ def noncentral_pipeline(torch, smi, checks, device=None):
     full = cal.compute_grid_resolution(1920, 1080, 25)
     grids = tuple("{1}x{0}".format(*cal.grid_resolution_for_level(lv, *full))
                   for lv in range(NONCENTRAL_LEVELS - 1, -1, -1))
-    rec.gate(st_f, report, NONCENTRAL_MEDIAN_PX, NONCENTRAL_KERNELS,
-             scale_tol=None, grids=grids)
+    rec.gate(st_f, report, NONCENTRAL_MEDIAN_PX,
+             NONCENTRAL_KERNELS + (NCG_PROJECTION,), scale_tol=None,
+             grids=grids)
     for grid, counts in per_grid.items():
         require(not counts.get("project") and not counts.get("project_blocks"),
-                f"a projection kernel launched on the noncentral path at {grid}")
+                f"a central projection kernel launched on the noncentral "
+                f"path at {grid}")
     for suffix in ("_line_offsets.png", "_lines.obj", "_info.txt"):
         require((out / "out" / "report" / f"report_camera0{suffix}").exists(),
                 f"calibrate --report wrote no {suffix}")
@@ -3376,11 +3573,15 @@ def profile_step(torch, lm_pcg, state, data, options, smi):
 
 @contextmanager
 def plain_routes(cgc, wc):
-    """Route the five kernel wrappers to their plain versions (for the
+    """Route the six kernel wrappers to their plain versions (for the
     kernel-vs-plain LM step comparison only)."""
+    from camera_calibration_torch.models import noncentral_generic as ncg
+    from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
+
     with mock.patch.object(cgc, "project_grid_coords",
                            cgc.project_grid_coords_plain), \
          mock.patch.object(cgc, "project_blocks", cgc.project_blocks_plain), \
+         mock.patch.object(ncgc, "project_points", ncg.project_points), \
          mock.patch.object(wc, "window_apply_j", wc.window_apply_j_plain), \
          mock.patch.object(wc, "window_apply_jtw", wc.window_apply_jtw_plain), \
          mock.patch.object(wc, "window_block_diag",

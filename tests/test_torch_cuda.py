@@ -24,6 +24,11 @@ The detector and the fused corner refinement run in float32 on the card
 against float64 on the CPU (the same features, positions within 1e-3 px
 at the median or 95th percentile and 1e-2 px at most).
 
+The NoncentralGeneric projection kernel is held to the plain
+``noncentral_generic.project_points`` on the card, at the tolerances of the
+central projections, with its grids staged in blocks of 256, 512 and 1024
+threads (16x16, 45x79, 84x100) and read from device memory (100x100).
+
 The live consumer runs on the card against the CPU, and so do the
 visualizer's error arrays (through the ``project`` kernel against the
 plain projection); one LM step on tables sharded over a one-rank NCCL
@@ -55,6 +60,9 @@ from camera_calibration_torch.ba import lm_pcg
 from camera_calibration_torch.ba import window_cuda as wc
 from camera_calibration_torch.models import central_generic as cg
 from camera_calibration_torch.models import central_generic_cuda as cgc
+from camera_calibration_torch.models import noncentral_generic as ncg
+from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
+from camera_calibration_torch.models.base import replace
 from camera_calibration_torch.ops import manifolds
 
 pytestmark = pytest.mark.gpu
@@ -300,6 +308,161 @@ def test_projection_points_converging_at_different_iterations(card):
     per_warp = iters.reshape(-1, 32)
     assert bool((per_warp.max(1).values > per_warp.min(1).values).all())
     _assert_projections_match(model, _run_projections(model, dirs, g0), n)
+
+
+def _noncentral_model(card, gh, gw):
+    """A 640×480 pinhole direction grid at gh×gw with the noncentral bench
+    problem's line-origin field (0.002·sin(x/2), 0.002·cos(y/2), 0)."""
+    yy, xx = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    origins = np.stack([0.002 * np.sin(xx / 2.0), 0.002 * np.cos(yy / 2.0),
+                        np.zeros_like(xx, float)], -1)
+    central = problems.pinhole_model(640, 480, gw, gh, device=card)
+    return replace(ncg.from_central(central), point_grid=torch.as_tensor(
+        origins, dtype=torch.float32, device=card))
+
+
+def _noncentral_case(card, gh, gw, seed, n=4000, warm_px=2.0):
+    """(model, points on the lines of random pixels at 0.5–3 m, warm-start
+    pixels ``warm_px`` off: a number or one per point)."""
+    model = _noncentral_model(card, gh, gw)
+    rng = np.random.default_rng(seed)
+    pix = torch.as_tensor(rng.uniform([2, 2], [638, 478], (n, 2)),
+                          dtype=torch.float32, device=card)
+    d, o, _ = ncg.unproject(model, pix)
+    depth = torch.as_tensor(rng.uniform(0.5, 3.0, (n, 1)),
+                            dtype=torch.float32, device=card)
+    noise = torch.as_tensor(rng.normal(0, 1, (n, 2)), dtype=torch.float32,
+                            device=card)
+    warm = pix + torch.as_tensor(warm_px, dtype=torch.float32,
+                                 device=card).reshape(-1, 1) * noise
+    return model, (o + depth * d).contiguous(), warm.contiguous()
+
+
+def _run_noncentral(model, points, warm, iters=8):
+    """The kernel ((px, g, valid, cost)) and the plain version ((px, g,
+    valid)) on the same inputs, on the card."""
+    before = _cuda.launches["project_noncentral"]
+    got = ncgc.project_points_and_cost(model, points, warm, iters)
+    want = ncg.project_points(model, points, init_xy=warm,
+                              max_iterations=iters)
+    torch.cuda.synchronize()
+    assert _cuda.launches["project_noncentral"] == before + 1
+    return got, want
+
+
+def _assert_noncentral_match(model, got, want, points, min_valid=0.9):
+    """Pixels to 1e-3 px on points valid in both, at most 1% valid-mask
+    flips, and the kernel's cost the plain cost at the kernel's g (offsets
+    to 1e-5 m, a tenth of the validity bar at 0.1 m)."""
+    n = points.shape[0]
+    (px_k, g_k, v_k, cost_k), (px_p, _, v_p) = got, want
+    assert int(v_p.sum()) > min_valid * n
+    assert int((v_k != v_p).sum()) <= 0.01 * n
+    both = v_k & v_p
+    assert float((px_k - px_p)[both].abs().max()) <= PX_TOL
+    assert torch.allclose(px_k, ncg.grid_to_pixel(model, g_k), rtol=0,
+                          atol=PX_TOL, equal_nan=True)
+    cost_p = ncg._cost_at(model, g_k[v_k], points[v_k])
+    assert float((cost_k[v_k].sqrt() - cost_p.sqrt()).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("gh,gw,staged,threads", [
+    (16, 16, True, 256),
+    # the pipeline's default grid for a 1080p camera: 85,320 B staged,
+    # two blocks of 512 an SM
+    (45, 79, True, 512),
+    # the grid of a 2448×2048 camera at 25 px a cell: 201,600 B staged, one
+    # block of 1024 an SM
+    (84, 100, True, 1024),
+    # past one block's shared memory: the grids read from device memory
+    (100, 100, False, 256)])
+def test_noncentral_projection_kernel_matches_plain(card, gh, gw, staged,
+                                                    threads):
+    plan = ncgc.plan(gh, gw)
+    assert (plan["staged"], plan["threads"]) == (staged, threads)
+    assert plan["blocks_per_sm"] * plan["threads"] == 1024
+    model, points, warm = _noncentral_case(card, gh, gw, seed=gh)
+    _assert_noncentral_match(model, *_run_noncentral(model, points, warm),
+                             points)
+    # without a warm start every point starts at the area's center
+    got = ncgc.project_points_and_cost(model, points, None, 30)
+    want = ncg.project_points(model, points, max_iterations=30)
+    _assert_noncentral_match(model, got, want, points)
+
+
+@pytest.mark.parametrize("gh,gw", [(16, 16), (45, 79), (100, 100)])
+def test_noncentral_projection_windows_outside_the_grid(card, gh, gw):
+    """Warm starts whose window lies off the grid, on every side and far
+    out, beside ordinary points in the same warps: a negative window base
+    counts from the grid's far end and the start is held inside it, as in
+    the plain version, so both move such points alike; a point whose warm
+    start is NaN in x stays where it started and is invalid.  The ordinary
+    points still match."""
+    model, points, warm = _noncentral_case(card, gh, gw, seed=5)
+    n = points.shape[0]
+    out = torch.zeros(n, dtype=torch.bool, device=card)
+    out[::3] = True
+    far_g = torch.tensor([[-4.5, 3.0], [gw + 3.5, 3.0], [3.0, -4.5],
+                          [3.0, gh + 3.5], [-7.0, -9.0], [-2e7, 5.0],
+                          [5.0, 3e8], [gw + 40.0, gh + 40.0],
+                          [float("nan"), 3.0]], device=card)
+    rows = torch.arange(int(out.sum()), device=card) % far_g.shape[0]
+    warm[out] = ncg.grid_to_pixel(model, far_g[rows])
+    got, want = _run_noncentral(model, points, warm)
+    nan = out.clone()
+    nan[out] = rows == far_g.shape[0] - 1
+    g0 = ncg.pixel_to_grid(model, warm)[nan]
+    for g, valid in ((got[1], got[2]), (want[1], want[2])):
+        assert bool(torch.isnan(g[nan][:, 0]).all())
+        assert torch.equal(g[nan][:, 1], g0[:, 1])
+        assert not bool(valid[nan].any())
+    assert int((got[2] != want[2])[out].sum()) <= 0.01 * n
+    keep = ~out
+    _assert_noncentral_match(model, tuple(t[keep] for t in got),
+                             tuple(t[keep] for t in want), points[keep])
+
+
+def test_noncentral_projection_points_converging_at_different_iterations(
+        card):
+    """Lanes of one warp that leave the loop at different iterations: warm
+    starts 0, 0.3, 3 and 30 px off in turn.  A point's last move is read
+    from the kernel run with 1, 2, ..., 8 iterations; every warp mixes
+    points that stop moving at different iterations."""
+    n = 4096
+    scale = torch.tensor([0.0, 0.3, 3.0, 30.0]).repeat(n // 4)
+    model, points, warm = _noncentral_case(card, 21, 28, seed=9, n=n,
+                                           warm_px=scale)
+    runs = [ncgc.project_points(model, points, warm, k)[1]
+            for k in range(1, 9)]
+    last = torch.zeros(n, dtype=torch.long, device=card)
+    for k in range(len(runs) - 1):
+        last = torch.where((runs[k + 1] != runs[k]).any(1), k + 1, last)
+    per_warp = last.reshape(-1, 32)
+    assert bool((per_warp.max(1).values > per_warp.min(1).values).all())
+    _assert_noncentral_match(model, *_run_noncentral(model, points, warm),
+                             points)
+
+
+def test_noncentral_wrapper_refuses_what_the_kernel_does_not_take(card):
+    model, points, warm = _noncentral_case(card, 16, 16, seed=1, n=64)
+    before = _cuda.launches["project_noncentral"]
+    model64 = replace(model, direction_grid=model.direction_grid.double(),
+                      point_grid=model.point_grid.double())
+    with pytest.raises(TypeError):
+        ncgc.project_points(model64, points.double(), warm.double())
+    with pytest.raises(TypeError):
+        ncgc.project_points(model, points.double(), warm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ncgc.project_points(model, points.T.contiguous().T, warm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ncgc.project_points(model, points, warm.T.contiguous().T)
+    cpu = replace(model, direction_grid=model.direction_grid.cpu(),
+                  point_grid=model.point_grid.cpu())
+    for args in ((cpu, points, warm), (model, points.cpu(), warm.cpu()),
+                 (model, points, warm.cpu()), (cpu, points.cpu(), warm)):
+        with pytest.raises(ValueError, match="not on the card"):
+            ncgc.project_points(*args)
+    assert _cuda.launches["project_noncentral"] == before
 
 
 def test_window_apply_jtw_compact_layout(card):
@@ -741,13 +904,14 @@ def test_parametric_optimize_on_the_card(card, kind):
 
 
 def test_noncentral_lm_step_through_kernels_matches_plain(card, monkeypatch):
-    """One NoncentralGeneric LM step (K=5 window kernels; the projection is
-    plain PyTorch) against the same step through the plain window
-    versions, on the card; then a short run in both solver modes that use
-    the kernels lowers the paired cost.  The step takes the λ of a first LM
-    step (from the diagonal): at λ = 1e-2 the system is nearly undamped
-    along the origin grid's ill-conditioned directions, where float32
-    rounding in the window sums moves the new cost by about 1e-3."""
+    """One NoncentralGeneric LM step (the projection kernel in the blocks
+    and the cost pass, K=5 window kernels) against the same step through
+    the plain versions, on the card; then a short run in both solver modes
+    that use the kernels lowers the paired cost.  The step takes the λ of
+    a first LM step (from the diagonal): at λ = 1e-2 the system is nearly
+    undamped along the origin grid's ill-conditioned directions, where
+    float32 rounding in the window sums moves the new cost by about
+    1e-3."""
     state, data, _ = problems.make_noncentral_bench_problem(
         n_points=128, n_poses=16, device=card)
     options = lm_pcg.BAOptions(max_pcg_iterations=12, proj_iterations=6)
@@ -756,10 +920,12 @@ def test_noncentral_lm_step_through_kernels_matches_plain(card, monkeypatch):
     _cuda.reset_launches()
     out_k = lm_pcg.lm_step(state, warm, lam, data, options)
     launched = dict(_cuda.launches)
+    assert launched.get("project_noncentral", 0) == 2
     for name in ("window_apply_j", "window_apply_jtw", "window_block_diag"):
         assert launched.get(name, 0) > 0, name
     for name in ("window_apply_j", "window_apply_jtw", "window_block_diag"):
         monkeypatch.setattr(wc, name, getattr(wc, name + "_plain"))
+    monkeypatch.setattr(ncgc, "project_points", ncg.project_points)
     out_p = lm_pcg.lm_step(state, warm, lam, data, options)
     assert dict(_cuda.launches) == launched
     cost_k, cost_p = float(out_k[5]), float(out_p[5])

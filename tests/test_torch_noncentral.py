@@ -14,7 +14,11 @@ sensitivities ``pix_wrt_x`` and ``j_win``), ``segment_blocks`` and
 one LM step in both Schur solvers and both step forms, and ``optimize``
 histories.  Tolerance 1e-9 relative (the observed gap is ~1e-15); ``accept``
 and the CG iteration counts identical.  Also: the ``convert`` round trip and
-the port's noncentral bench problem at a small size.
+the port's noncentral bench problem at a small size; and what the card's
+projection kernel (``models/noncentral_generic_cuda.py``) relies on: the
+loop run for exactly ``max_iterations`` with per-point ``done`` and no host
+test gives ``project_points``' result bit for bit, the wrapper's clamp
+bounds are the plain ones, and a CPU call goes to the plain function.
 """
 
 import dataclasses
@@ -27,12 +31,15 @@ import torch
 
 import __graft_entry__ as graft
 import ba_harness
-from camera_calibration_torch import convert, problems
+from camera_calibration_torch import _cuda, convert, problems, tracing
 from camera_calibration_torch.ba import lm_pcg as T
 from camera_calibration_torch.ba import residuals as tres
 from camera_calibration_torch.ba import state as tstate
+from camera_calibration_torch.models import central_generic as tcg
 from camera_calibration_torch.models import noncentral_generic as tncg
+from camera_calibration_torch.models import noncentral_generic_cuda as tncgc
 from camera_calibration_torch.models import protocol as tprot
+from camera_calibration_torch.models.base import replace
 from camera_calibration_tpu.ba import lm_pcg as J
 from camera_calibration_tpu.ba import residuals as jres
 from camera_calibration_tpu.ba import state as jstate
@@ -294,3 +301,109 @@ def test_noncentral_bench_problem_small():
     hist = info["history"]
     assert hist[0]["accepted"]
     assert hist[-1]["paired_new_cost"] < hist[0]["paired_cost"]
+
+
+def _bench_model(dtype, gh=16, gw=16):
+    """The noncentral bench problem's camera: a 640×480 pinhole direction
+    grid and the line-origin field (0.002·sin(x/2), 0.002·cos(y/2), 0)."""
+    yy, xx = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    origins = np.stack([0.002 * np.sin(xx / 2.0), 0.002 * np.cos(yy / 2.0),
+                        np.zeros_like(xx, float)], -1)
+    central = problems.pinhole_model(640, 480, gw, gh, device="cpu",
+                                     dtype=dtype)
+    return replace(tncg.from_central(central),
+                   point_grid=torch.as_tensor(origins, dtype=dtype))
+
+
+def _projection_inputs(model, n=2048, seed=3):
+    """Points on the lines of random pixels at 0.5–3 m, and warm starts 0,
+    0.3, 3 and 30 px off in turn; every 16th warm start lies far off the
+    image, so its window leaves the grid (a negative base counts from the
+    far end, then is held inside)."""
+    dtype = model.direction_grid.dtype
+    rng = np.random.default_rng(seed)
+    pix = torch.as_tensor(rng.uniform([2, 2], [638, 478], (n, 2)),
+                          dtype=dtype)
+    d, o, _ = tncg.unproject(model, pix)
+    depth = torch.as_tensor(rng.uniform(0.5, 3.0, (n, 1)), dtype=dtype)
+    points = o + depth * d
+    scale = torch.tensor([0.0, 0.3, 3.0, 30.0], dtype=dtype).repeat(n // 4)
+    warm = pix + scale[:, None] * torch.as_tensor(rng.normal(0, 1, (n, 2)),
+                                                  dtype=dtype)
+    far = torch.tensor([[-100.0, 240.0], [760.0, 240.0], [320.0, -90.0],
+                        [320.0, 600.0], [-300.0, -300.0], [2000.0, 1500.0]],
+                       dtype=dtype)
+    warm[::16] = far[torch.arange(n // 16) % far.shape[0]]
+    return points, warm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_loop_without_host_test_is_project_points(dtype):
+    """Per-point exit gives the plain loop's result: the loop run for all
+    ``max_iterations`` with per-point ``done`` (what the kernel does:
+    ``noncentral_generic_cuda.lm_loop_plain``) and
+    ``project_points`` (which leaves once every point is done) agree bit
+    for bit, with points done at different iterations and windows off the
+    grid."""
+    model = _bench_model(dtype)
+    points, warm = _projection_inputs(model)
+    eps = 1e-10 if dtype == torch.float32 else 1e-16
+
+    def both(points, warm, iters):
+        reads = tracing.host_reads["ncg.project"]
+        px, g, valid = tncg.project_points(model, points, init_xy=warm,
+                                           max_iterations=iters)
+        loop_tests = tracing.host_reads["ncg.project"] - reads
+        px_f, g_f, valid_f, done_at = tncgc.lm_loop_plain(
+            model, points, warm, iters, eps)
+        assert torch.equal(px, px_f) and torch.equal(g, g_f)
+        assert torch.equal(valid, valid_f)
+        assert len(set(done_at.tolist()) - {-1}) >= 3
+        return valid, loop_tests, done_at
+
+    # some far warm starts never reach eps, so the plain loop runs on
+    valid, _, done_at = both(points, warm, 4)
+    assert int(valid.sum()) > 0.9 * points.shape[0]
+    valid, loop_tests, done_at = both(points, warm, 50)
+    assert loop_tests == 50 and int((done_at < 0).sum()) > 0
+    # the points that are done: the plain loop leaves early
+    keep = done_at >= 0
+    _, loop_tests, done_at = both(points[keep], warm[keep], 50)
+    assert bool((done_at >= 0).all()) and loop_tests < 50
+    # the far warm starts begin in windows that the start rule moved
+    g0 = tncg.pixel_to_grid(model, warm[::16])
+    base = torch.floor(g0).long() - 1
+    assert bool((base < 0).any()) and bool((base > 16 - 4).any())
+
+
+def test_wrapper_clamp_bounds_are_pixel_to_grid_of_the_corners():
+    """The kernel's clamp range, Python floats from the model's integer
+    bounds (``central_generic._static_clamp_bounds``, which the wrapper
+    passes), is the plain loop's ``pixel_to_grid`` of the corners."""
+    for gh, gw in ((16, 16), (45, 79)):
+        model = replace(_bench_model(torch.float64, gh, gw),
+                        calibration_min_x=3, calibration_min_y=5,
+                        calibration_max_x=630, calibration_max_y=471)
+        lo, hi = tcg._static_clamp_bounds(model)
+        assert all(type(v) is float for v in lo + hi)
+        corners = torch.tensor([[3.0, 5.0], [630.999, 471.999]],
+                               dtype=torch.float64)
+        want = tncg.pixel_to_grid(model, corners)
+        assert torch.equal(torch.tensor([lo, hi], dtype=torch.float64), want)
+
+
+def test_cpu_call_goes_to_the_plain_function():
+    model = _bench_model(torch.float32)
+    points, warm = _projection_inputs(model, n=256)
+    launches = dict(_cuda.launches)
+    reads = tracing.host_reads["ncg.project"]
+    got = tncgc.project_points(model, points, init_xy=warm, max_iterations=6)
+    assert tracing.host_reads["ncg.project"] > reads
+    want = tncg.project_points(model, points, init_xy=warm, max_iterations=6)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    got = tncgc.project_points(model, points, max_iterations=6)
+    want = tncg.project_points(model, points, max_iterations=6)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert dict(_cuda.launches) == launches
