@@ -31,6 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "project.cu",
     "project_noncentral.cu",
+    "schur_legs.cu",
     "window_apply_j.cu",
     "window_apply_jtw.cu",
     "window_block_diag.cu",
@@ -72,6 +73,17 @@ SIGNATURES = {
     # band_rows, partial, nblocks, out, stream
     "cct_window_block_diag": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _P, _P],
+    # jrig, jcam, jpt, w, s_intr, x_rig, x_cam, m, p, elem_bytes, rows,
+    # t_in (or None), partial, tickets, t_out, stream
+    "cct_schur_point_leg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                            _P, _P, _P, _P],
+    # jrig, jcam, jpt, w, s_intr, x_rig, x_cam (the three or none), t,
+    # d_inv, m, p, elem_bytes, ws_out, rig_out, accumulate, cam_partial,
+    # tickets, cam_out, stream
+    "cct_schur_pose_leg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _P, _P, _I, _P, _P, _P, _P],
+    # m, p, elem_bytes, out (4 ints): cct_schur_point_leg's launch plan
+    "cct_schur_point_leg_plan": [_I, _I, _I, _P],
     # blocks (0: cct_project, 1: cct_project_blocks), gh, gw: the kernel's
     # blocks that fit on one SM, its threads per block, one block's shared
     # memory

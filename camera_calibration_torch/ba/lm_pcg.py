@@ -15,7 +15,10 @@
   grid model's intrinsics go through the window kernels
   (``ba/window_cuda.py``); the CentralGeneric projections go through the
   projection kernels (``models/central_generic_cuda.py``).  A parametric
-  model's dense (2, P) blocks are contracted by einsums.
+  model's dense (2, P) blocks are contracted by einsums.  On grid tables
+  the pose and point legs of the point-eliminated Schur solve (every
+  matvec, the right-hand side, the back-substitution) go through two
+  kernels (``ba/schur_cuda.py``), for any camera model.
 - An LM step is judged on the observations valid in both states (paired
   cost comparison); λ is halved on accept and doubled on reject.
 - Projections warm-start from the previous converged pixels.
@@ -49,7 +52,7 @@ import torch
 
 from camera_calibration_torch import tracing
 from camera_calibration_torch.ba import residuals as res
-from camera_calibration_torch.ba import window_cuda
+from camera_calibration_torch.ba import schur_cuda, window_cuda
 from camera_calibration_torch.ba.dataset import (
     ObservationTable, split_by_camera, to_grid_layout,
 )
@@ -169,42 +172,39 @@ def _grid_mp(seg, m=None, p=None):
 
 def _jv_imageset(seg, j, arr):
     """einsum('nik,nk->ni', j, arr[seg.imageset]) without the gather."""
-    j = res.as_dtype_of(j, arr)
     gs = _grid_mp(seg, m=arr.shape[0])
     if gs is not None:
-        jg = j.reshape(gs + j.shape[1:])
-        return torch.einsum("mpik,mk->mpi", jg, arr).reshape(j.shape[:2])
-    return torch.einsum("nik,nk->ni", j, arr[seg.imageset])
+        return schur_cuda.grid_jv_imageset(j, arr, gs)
+    return torch.einsum("nik,nk->ni", res.as_dtype_of(j, arr),
+                        arr[seg.imageset])
 
 
 def _jv_point(seg, j, arr):
     """einsum('nik,nk->ni', j, arr[seg.point]) without the gather."""
-    j = res.as_dtype_of(j, arr)
     gs = _grid_mp(seg, p=arr.shape[0])
     if gs is not None:
-        jg = j.reshape(gs + j.shape[1:])
-        return torch.einsum("mpik,pk->mpi", jg, arr).reshape(j.shape[:2])
-    return torch.einsum("nik,nk->ni", j, arr[seg.point])
+        return schur_cuda.grid_jv_point(j, arr, gs)
+    return torch.einsum("nik,nk->ni", res.as_dtype_of(j, arr),
+                        arr[seg.point])
 
 
 def _jtw_imageset(seg, j, ws, m):
     """segment_sum(einsum('nik,ni->nk', j, ws), seg.imageset, m)."""
-    j = res.as_dtype_of(j, ws)
     gs = _grid_mp(seg, m=m)
     if gs is not None:
-        jg = j.reshape(gs + j.shape[1:])
-        return torch.einsum("mpik,mpi->mk", jg, ws.reshape(gs + (2,)))
-    return onehot_segment_sum(torch.einsum("nik,ni->nk", j, ws), seg.imageset, m)
+        return schur_cuda.grid_jtw_imageset(j, ws, gs)
+    return onehot_segment_sum(
+        torch.einsum("nik,ni->nk", res.as_dtype_of(j, ws), ws), seg.imageset,
+        m)
 
 
 def _jtw_point(seg, j, ws, p):
     """segment_sum(einsum('nik,ni->nk', j, ws), seg.point, p)."""
-    j = res.as_dtype_of(j, ws)
     gs = _grid_mp(seg, p=p)
     if gs is not None:
-        jg = j.reshape(gs + j.shape[1:])
-        return torch.einsum("mpik,mpi->pk", jg, ws.reshape(gs + (2,)))
-    return onehot_segment_sum(torch.einsum("nik,ni->nk", j, ws), seg.point, p)
+        return schur_cuda.grid_jtw_point(j, ws, gs)
+    return onehot_segment_sum(
+        torch.einsum("nik,ni->nk", res.as_dtype_of(j, ws), ws), seg.point, p)
 
 
 def _jtwj_diag_imageset(seg, j, w, m):
@@ -545,6 +545,70 @@ def _cg_cast_blocks(blocks, options):
     return out
 
 
+def _grid_rows(data, state):
+    """(first imageset, imagesets) of the rows that every camera's table
+    holds in grid layout over all points: every imageset for a plain table,
+    the rank's band for a sharded one (``Shard.band_starts``).  None where a
+    table is flat or the tables hold different rows: then the per-group
+    legs run.  Every rank of a group gets the same answer."""
+    shard = sharding.shard_of(data)
+    m, p = state.rig_q_global.shape[0], state.points.shape[0]
+    rows = set()
+    for ci, seg in enumerate(data):
+        gs = seg.grid_shape
+        if shard is None:
+            m0 = 0 if gs is not None and gs[0] == m else None
+        else:
+            starts = shard.band_starts
+            m0 = starts[ci] if ci < len(starts) else None
+        if (gs is None or m0 is None or gs[1] != p or m0 + gs[0] > m
+                or gs[0] * gs[1] != seg.imageset.shape[0]):
+            return None
+        rows.add((m0, gs[0]))
+    return rows.pop() if len(rows) == 1 else None
+
+
+def _point_legs(data, blocks, rows, x: BATangent, s_intr):
+    """Bᵀx = Σ over the cameras' grid tables of J_pointᵀ W (J_keep x), summed
+    over the ranks: (P, 3).  ``rows`` = :func:`_grid_rows`; ``s_intr[c]``
+    = J_intr·x_intr of camera c."""
+    m0, mm = rows
+    t = None
+    for ci, seg in enumerate(data):
+        if mm == 0:  # a rank with no imagesets adds nothing
+            break
+        b = blocks[ci]
+        t = schur_cuda.point_leg(b.j_rig, b.j_cam, b.j_point, b.weight,
+                                 s_intr[ci], x.rig[m0:m0 + mm], x.cam[ci],
+                                 seg.grid_shape, t_in=t)
+    if t is None:
+        t = torch.zeros_like(x.points)
+    return _reduce(data, t)[0]
+
+
+def _pose_legs(data, blocks, rows, x, s_intr, t, d_inv, out_flat,
+               out: BATangent):
+    """J_keepᵀ W (J_keep x − J_point D⁻¹ t) over the cameras' grid tables,
+    written into ``out``, the rig, camera and intrinsics views of the flat
+    tangent ``out_flat``, and summed over the ranks; returns the flat
+    vector.  Only the band's rig rows are written: the points, and on a
+    shard the other rig rows, keep the zeros ``out_flat`` starts with.
+    ``x`` None: J_keep x = 0."""
+    m0, mm = rows
+    rig_out = out.rig[m0:m0 + mm]
+    for ci, seg in enumerate(data):
+        if mm == 0:
+            break
+        b = blocks[ci]
+        xs = (None, None, None) if x is None else (
+            s_intr[ci], x.rig[m0:m0 + mm], x.cam[ci])
+        ws = schur_cuda.pose_leg(b.j_rig, b.j_cam, b.j_point, b.weight, *xs,
+                                 t, d_inv, seg.grid_shape, rig_out,
+                                 out.cam[ci], accumulate=ci > 0)
+        res.intr_apply_jtw(b.intr, ws, out.intr[ci], out=out.intr[ci])
+    return _reduce(data, out_flat)[0]
+
+
 def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
                     eliminate: str = "points", x0=None):
     """Solve (JᵀWJ + λI) δ = −grad by block elimination + PCG.
@@ -553,7 +617,11 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     and intrinsics); eliminate="poses" eliminates the 6×6 imageset pose
     blocks (PCG on cameras, points and intrinsics).  The reduced matvec
     stays matrix-free and reads :func:`_cg_cast_blocks`; the right-hand side
-    and the back-substitution read ``blocks``.  Returns (δ, CG iterations).
+    and the back-substitution read ``blocks``.  With the points eliminated
+    and every table in grid layout (on a shard, its band of imagesets) the
+    legs go through :func:`_point_legs` and :func:`_pose_legs` (kernels on
+    the card); otherwise through the per-group J·v and JᵀW·s.  Returns (δ,
+    CG iterations).
     """
     rig_b, cam_b, pts_b, intr_b = block_diag
     el_points = eliminate == "points"
@@ -584,29 +652,57 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
         return torch.einsum("pjk,pk->pj", d_inv, t_e)
 
     blocks_mv = _cg_cast_blocks(blocks, options)
+    g_e = get_elim(grad)
+    rows = _grid_rows(data, state) if el_points else None
+    if rows is not None:
+        d_inv = d_inv.contiguous()
+        g_e = g_e.contiguous()
+        # the flat output of every pass B: its points (and on a shard the
+        # rig rows of the other bands) stay 0, the rest is written whole by
+        # each call
+        out_flat = torch.zeros_like(mask_keep_flat)
+        out = mask_keep.unravel(out_flat)
 
-    def matvec_flat(vf):
-        v = mask_keep.unravel(vf * mask_keep_flat)
-        u = _apply_j_subset(data, blocks_mv, v, **keep)
-        t_e = get_elim(_apply_jt_subset(data, blocks_mv, u, state, **elim))
+        def intr_j(blks, x):
+            return [res.intr_apply_j(b.intr, x.intr[ci]).contiguous()
+                    for ci, b in enumerate(blks)]
+
+        def matvec_flat(vf):
+            v = mask_keep.unravel(vf * mask_keep_flat)
+            s_intr = intr_j(blocks_mv, v)
+            t = _point_legs(data, blocks_mv, rows, v, s_intr)
+            return (_pose_legs(data, blocks_mv, rows, v, s_intr, t, d_inv,
+                               out_flat, out) + lam * vf) * mask_keep_flat
+
+        # reduced RHS: b_keep = −g_keep + B D⁻¹ g_elim; pass B with x = 0
+        # gives −B D⁻¹ g_elim
+        corr = _pose_legs(data, blocks, rows, None, None, g_e, d_inv,
+                          out_flat, out)
+        b_flat = -(grad.ravel() + corr) * mask_keep_flat
+    else:
+        def matvec_flat(vf):
+            v = mask_keep.unravel(vf * mask_keep_flat)
+            u = _apply_j_subset(data, blocks_mv, v, **keep)
+            t_e = get_elim(_apply_jt_subset(data, blocks_mv, u, state,
+                                            **elim))
+            u2 = _apply_j_subset(
+                data, blocks_mv,
+                with_elim(zero_tangent(state), apply_elim_block(t_e)), **elim)
+            diff = [a - b_ for a, b_ in zip(u, u2)]
+            out = _apply_jt_subset(data, blocks_mv, diff, state,
+                                   **keep).ravel()
+            return (out + lam * vf) * mask_keep_flat
+
+        # reduced RHS: b_keep = −g_keep + B D⁻¹ g_elim
         u2 = _apply_j_subset(
-            data, blocks_mv,
-            with_elim(zero_tangent(state), apply_elim_block(t_e)), **elim)
-        diff = [a - b_ for a, b_ in zip(u, u2)]
-        out = _apply_jt_subset(data, blocks_mv, diff, state, **keep).ravel()
-        return (out + lam * vf) * mask_keep_flat
+            data, blocks,
+            with_elim(zero_tangent(state), apply_elim_block(g_e)), **elim)
+        corr = _apply_jt_subset(data, blocks, u2, state, **keep)
+        b_flat = grad.map(lambda g, c: -g + c, corr).ravel() * mask_keep_flat
 
     def precond_flat(rf):
         return precond(mask_keep.unravel(rf * mask_keep_flat)).ravel() \
             * mask_keep_flat
-
-    # reduced RHS: b_keep = −g_keep + B D⁻¹ g_elim
-    g_e = get_elim(grad)
-    u2 = _apply_j_subset(
-        data, blocks, with_elim(zero_tangent(state), apply_elim_block(g_e)),
-        **elim)
-    corr = _apply_jt_subset(data, blocks, u2, state, **keep)
-    b_flat = grad.map(lambda g, c: -g + c, corr).ravel() * mask_keep_flat
 
     x0_flat = (zero_elim(x0).ravel() * mask_keep_flat
                if x0 is not None else None)
@@ -615,8 +711,11 @@ def schur_pcg_solve(data, blocks, state, grad, block_diag, lam, mask, options,
     x = mask_keep.unravel(x_flat * mask_keep_flat)
 
     # back-substitution: δ_e = D⁻¹ (−g_e − Bᵀ δ_keep)
-    u = _apply_j_subset(data, blocks, x, **keep)
-    bt_x = get_elim(_apply_jt_subset(data, blocks, u, state, **elim))
+    if rows is not None:
+        bt_x = _point_legs(data, blocks, rows, x, intr_j(blocks, x))
+    else:
+        u = _apply_j_subset(data, blocks, x, **keep)
+        bt_x = get_elim(_apply_jt_subset(data, blocks, u, state, **elim))
     x = with_elim(x, apply_elim_block(-g_e - bt_x))
     return _masked(x, mask), iters
 

@@ -239,13 +239,15 @@ def intr_apply_j(intr, tangent_intr):
         intr.j_win, intr.base_xy, tangent_intr.contiguous())
 
 
-def intr_apply_jtw(intr, ws, tangent_shape_like):
-    """Intrinsics part of JᵀW·s, scattered into the tangent layout."""
+def intr_apply_jtw(intr, ws, tangent_shape_like, out=None):
+    """Intrinsics part of JᵀW·s, scattered into the tangent layout (written
+    into ``out`` where given, and returned)."""
     if isinstance(intr, DenseIntr):
-        return torch.einsum("nik,ni->k", as_dtype_of(intr.j_params, ws), ws)
+        jtw = torch.einsum("nik,ni->k", as_dtype_of(intr.j_params, ws), ws)
+        return jtw if out is None else out.copy_(jtw)
     gh, gw, k = tangent_shape_like.shape
     return window_cuda.window_apply_jtw(
-        intr.j_win, intr.base_xy, ws.contiguous(), gh, gw, k)
+        intr.j_win, intr.base_xy, ws.contiguous(), gh, gw, k, out=out)
 
 
 def segment_cost(

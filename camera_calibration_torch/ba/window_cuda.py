@@ -236,17 +236,19 @@ def window_apply_j_plain(j_win, base_xy, tangent):
     return torch.stack([out0, out1], dim=-1)
 
 
-def window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k):
-    """J_intrᵀ(W·s) scattered into (gh, gw, K) in plain PyTorch."""
+def window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k, out=None):
+    """J_intrᵀ(W·s) scattered into (gh, gw, K) in plain PyTorch (written
+    into ``out`` where given, and returned)."""
     j_win = _widened(j_win)
     n = j_win.shape[-1]
     flat, mask = _window_index(base_xy, gh, gw)
     c = j_win[:16 * k] * ws[:, 0] + j_win[16 * k:] * ws[:, 1]  # (16K, N)
     c = c.reshape(4, 4, k, n).permute(3, 0, 1, 2)
     c = torch.where(mask[..., None], c, 0.0)
-    out = torch.zeros((gh * gw, k), dtype=c.dtype, device=c.device)
-    out.index_add_(0, flat.reshape(-1), c.reshape(-1, k))
-    return out.reshape(gh, gw, k)
+    acc = torch.zeros((gh * gw, k), dtype=c.dtype, device=c.device)
+    acc.index_add_(0, flat.reshape(-1), c.reshape(-1, k))
+    acc = acc.reshape(gh, gw, k)
+    return acc if out is None else out.copy_(acc)
 
 
 def window_block_diag_plain(j_win, base_xy, w, gh, gw, k):
@@ -305,9 +307,16 @@ def _counted(name, j_win):
 
 
 def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, out_shape,
-                      band_rows):
+                      band_rows, out=None):
     n = _check(name, j_win, base_xy, k)
     _cuda.require_cuda_f32(name, per_obs=per_obs)
+    if out is None:
+        out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
+    else:
+        _cuda.require_cuda_f32(name, out=out)
+        if tuple(out.shape) != out_shape or out.device != j_win.device:
+            raise ValueError(f"{name}: out must be {out_shape} on the card "
+                             f"of j_win, got {tuple(out.shape)}")
     elem = j_win.element_size()
     rows, bands = reduction_bands(name, gh, gw, k)
     if band_rows is not None:
@@ -315,7 +324,6 @@ def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, out_shape,
             raise ValueError(f"{name}: band_rows must be in 1..{gh}")
         rows = band_rows
     _cuda.check_smem(reduction_smem_bytes(name, gh, gw, k, rows), name)
-    out = torch.empty(out_shape, dtype=torch.float32, device=j_win.device)
     if n == 0:
         return out.zero_()
     dev = j_win.device
@@ -333,18 +341,20 @@ def _reduction_launch(name, j_win, base_xy, per_obs, gh, gw, k, out_shape,
     return out
 
 
-def window_apply_jtw(j_win, base_xy, ws, gh, gw, k, *, band_rows=None):
-    """J_intrᵀ(W·s) scattered into (gh, gw, K); ws (N, 2).
+def window_apply_jtw(j_win, base_xy, ws, gh, gw, k, *, band_rows=None,
+                     out=None):
+    """J_intrᵀ(W·s) scattered into (gh, gw, K); ws (N, 2).  Written into
+    ``out`` (a contiguous float32 (gh, gw, K) tensor) where given.
 
     ``band_rows`` (kernel only): grid rows per band of the partial pass in
     place of :func:`reduction_plan`'s; the result is the same, bit for
     bit."""
     if j_win.device.type == "cpu":
-        return window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k)
+        return window_apply_jtw_plain(j_win, base_xy, ws, gh, gw, k, out)
     if ws.shape != (j_win.shape[1], 2):
         raise ValueError("window_apply_jtw: ws must be (N, 2)")
     return _reduction_launch("window_apply_jtw", j_win, base_xy, ws, gh, gw,
-                             k, (gh, gw, k), band_rows)
+                             k, (gh, gw, k), band_rows, out)
 
 
 def window_block_diag(j_win, base_xy, w, gh, gw, k, *, band_rows=None):

@@ -60,13 +60,17 @@ def backend_for(device) -> str:
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """Where a rank's tables sit: its process group (None = the default
-    group), rank and world size, and whether the grid intrinsics' per-knot
-    work is split by knot rows too (:func:`shard_grid_blocks`)."""
+    group), rank and world size, whether the grid intrinsics' per-knot
+    work is split by knot rows too (:func:`shard_grid_blocks`), and, per
+    table, the first imageset of a grid-layout table's band (None for a
+    flat table; empty where the tables were not cut by
+    :func:`shard_observations`)."""
 
     group: object
     rank: int
     world_size: int
     grid_blocks: bool = False
+    band_starts: tuple = ()
 
 
 class ShardedTables(tuple):
@@ -116,17 +120,20 @@ def shard_observations(data, group=None):
     device = data[0].pixel.device if data else torch.device("cpu")
     _require_group(group, device)
     world, rank = dist.get_world_size(group), dist.get_rank(group)
-    out = []
+    out, starts = [], []
     for seg in data:
         if seg.grid_shape is not None:
             m, p = seg.grid_shape
             m0, m1 = m * rank // world, m * (rank + 1) // world
             out.append(_rows(seg, slice(m0 * p, m1 * p), (m1 - m0, p)))
+            starts.append(m0)
             continue
         seg = pad_table(seg, world)
         n = seg.count // world
         out.append(_rows(seg, slice(rank * n, (rank + 1) * n)))
-    return ShardedTables(out, Shard(group, rank, world))
+        starts.append(None)
+    return ShardedTables(out, Shard(group, rank, world,
+                                    band_starts=tuple(starts)))
 
 
 def shard_grid_blocks(data):

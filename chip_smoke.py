@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It imports only ``camera_calibration_torch`` and, for one
-row of [5], the benchmark's ``calib_bench`` (never JAX) and:
+toolkit.  It imports only ``camera_calibration_torch`` and, for the
+rows of [5] at the benchmark's deployments, ``calib_bench`` (never JAX)
+and:
 
 1. prints the card's name and power limit;
 2. builds the hand-written kernels from ``camera_calibration_torch/csrc``
@@ -49,10 +50,12 @@ row of [5], the benchmark's ``calib_bench`` (never JAX) and:
    the parametric twins of the bench
    problem (ThinPrismFisheye, OpenCV, Radial) in both step forms with
    ``solver="auto"`` and ``"schur"``, and the ThinPrismFisheye one with
-   ``"schur_direct"``, ``"schur_direct_points"`` and ``"pcg"`` (no grid
-   kernel may launch there); and with ``cg_jacobian_dtype="bfloat16"`` on
-   the central, noncentral and ThinPrismFisheye problems (the bf16 kernels
-   launch once per CG iteration, the float32 matvec kernels only outside
+   ``"schur_direct"``, ``"schur_direct_points"`` and ``"pcg"`` (no kernel
+   of a grid model may launch there: the point-eliminated ``schur`` runs
+   take the Schur legs' two kernels, which do not depend on the
+   intrinsics); and with ``cg_jacobian_dtype="bfloat16"`` on
+   the central, noncentral and ThinPrismFisheye problems (the bf16 kernels,
+   the Schur legs' included, launch once per CG iteration, the float32 matvec kernels only outside
    CG).  It checks that every kernel of a path ran and that the paired cost
    falls in every run, and compares one LM step through the kernels with
    one through the plain versions, central and noncentral, in float32 and
@@ -84,7 +87,12 @@ row of [5], the benchmark's ``calib_bench`` (never JAX) and:
    0.1% of them), then timed
    at 4 iterations with its plain version and its bound (the window
    evaluations' shared-memory reads and FLOP; JSON row
-   ``project_noncentral``);
+   ``project_noncentral``); and the Schur legs' two passes at one start
+   state of each cell's deployment (``cg1080.ba_final`` 500×3,454 and
+   ``ncg1080.ba_final`` 300×3,454 slots), float32 and bf16 Jacobians,
+   held to their float64 plain versions and timed beside the plain
+   composition, with the byte bound of the rows they read (JSON rows
+   ``schur_point_leg[_bf16]_<cell>``, ``schur_pose_leg[_bf16]_<cell>``);
 6. profiles two LM iterations with ``torch.profiler`` (device busy share,
    host syncs, the kernels that take the most time; the trace goes to
    ``camera_calibration_torch/_build/chip_smoke_trace.json``);
@@ -377,6 +385,11 @@ NONCENTRAL_MEDIAN_PX = 0.01
 NONCENTRAL_KERNELS = ("window_apply_j", "window_apply_jtw",
                       "window_block_diag")
 NCG_PROJECTION = "project_noncentral"
+# The two passes of the point-eliminated Schur matvec on grid tables
+# (ba/schur_cuda.py), and the deployments [5] times them at: the
+# benchmark's two cells, one start state each.
+SCHUR_LEGS = ("schur_point_leg", "schur_pose_leg")
+SCHUR_CELLS = (("cg1080.ba_final", 1), ("ncg1080.ba_final", 1))
 
 
 STEREO_SIZE = (1920, 1080)
@@ -1000,7 +1013,7 @@ def main() -> int:
     cached = dataclasses.replace(two_pass, lm_steps_per_call=3)
     forms = (("two-pass", two_pass), ("cached-blocks", cached))
     launches, _ = drive("central bench, schur", state, data, forms,
-                        central_kernels)
+                        central_kernels + SCHUR_LEGS)
     auto = dataclasses.replace(two_pass, solver="auto")
     resolved = lm_pcg.resolve_solver(auto, state).solver
     reduced = state.points.shape[0] * 3 + 6 + gh * gw * 2
@@ -1046,10 +1059,11 @@ def main() -> int:
     report = lm_pcg.verify_cost(verify_state, data, options)
     log(f"    verify_cost after one LM iteration: {json.dumps(report)}")
     nc_launches, _ = drive("noncentral bench, schur", nstate, ndata, forms,
-                           (NCG_PROJECTION,) + window_kernels)
+                           (NCG_PROJECTION,) + window_kernels + SCHUR_LEGS)
 
     # The parametric twins of the bench problem: dense intrinsics blocks
-    # (einsums), so no grid kernel may launch.
+    # (einsums), so no kernel of a grid model may launch; their grid tables
+    # take the Schur legs.
     param_problems = {}
     auto_forms = tuple((f"{form}, auto", dataclasses.replace(o, solver="auto"))
                        for form, o in forms)
@@ -1064,8 +1078,10 @@ def main() -> int:
             f"resolves to {lm_pcg.resolve_solver(auto, pst).solver!r}")
         counts, _ = drive(f"{pkind} bench", pst, pdat,
                           auto_forms + tuple((f"{f}, schur", o)
-                                             for f, o in forms), ())
-        require(not any(counts.values()),
+                                             for f, o in forms), SCHUR_LEGS)
+        # the Schur legs do not depend on the intrinsics: only they launch
+        require(not any(c for k_, c in counts.items()
+                        if k_ not in SCHUR_LEGS),
                 f"{pkind}: a grid kernel launched: {counts}")
     tpf_state, tpf_data = param_problems["thin_prism_fisheye"]
     for mode in ("schur_direct", "schur_direct_points", "pcg"):
@@ -1097,6 +1113,10 @@ def main() -> int:
                   dict.fromkeys(("window_apply_j_bf16",
                                  "window_apply_jtw_bf16", "window_apply_j",
                                  "window_apply_jtw"), 0))
+        # the Schur legs on every grid table: both passes a CG iteration in
+        # bf16, the right-hand side and the back-substitution in float32
+        expect.update({f"{k_}_bf16": n_cg for k_ in SCHUR_LEGS})
+        expect.update(dict.fromkeys(SCHUR_LEGS, len(hist)))
         got = {k_: counts.get(k_, 0) for k_ in expect}
         log(f"    {label}, bf16 CG: {n_cg} CG iterations in {len(hist)} "
             f"steps; matvec launches {got}")
@@ -1441,6 +1461,13 @@ def main() -> int:
 
     # The NoncentralGeneric projection at the shape of its main path.
     kernels.append(noncentral_projection_row(torch, smi, nc_launches))
+    # The Schur legs at the benchmark cells' deployments.
+    kernels.extend(schur_legs_rows(torch, smi, {
+        ("cg1080.ba_final", torch.float32): launches,
+        ("ncg1080.ba_final", torch.float32): nc_launches,
+        ("cg1080.ba_final", torch.bfloat16): bf16_launches["central bench"],
+        ("ncg1080.ba_final", torch.bfloat16):
+        bf16_launches["noncentral bench"]}))
 
     # The kernels past their staged plans ([3]): project and project_blocks
     # at the 5 MP grid, J.v at K=5 108x108.
@@ -2159,6 +2186,108 @@ def noncentral_projection_row(torch, smi, launches):
                                      "max_abs_px_valid", "flips",
                                      "apart"), v))
                    for k, v in checks.items()}}
+
+
+def schur_legs_rows(torch, smi, launches):
+    """[5]: the two passes of the Schur legs (``schur_point_leg_kernel``,
+    ``schur_pose_leg_kernel``) at the shapes of their main path: the
+    blocks of one start state of each of SCHUR_CELLS' deployments (every
+    slot of the view × corner grid, the unobserved ~30% with weight 0), a
+    seeded masked tangent, J_intr·x from the window kernel, the damped
+    point inverses at λ = 1e-3; float32 and bf16 Jacobians.  Each pass is
+    held to its plain version in float64 on the same values (pass B given
+    the kernel's t), then timed as [5] times the other rows (events, graph
+    replay), beside the plain composition it replaced (the same einsums on
+    the card).  The bound: the bytes the inputs need once through HBM
+    (a kept row's Jacobians, weight and s_intr; an unobserved row's weight,
+    which is all the kernels read of it; pass B's ws written for every
+    row; x, t, D⁻¹ once).  Returns one JSON row per pass, cell and
+    Jacobian type; ``launches`` by (cell, Jacobian type) holds the counts of
+    [4]'s run of that row's own path (the central or noncentral bench
+    problem, float32 or bf16 CG), and the row gives its kernel's (0 where
+    the path was not run)."""
+    from calib_bench import harness
+    from camera_calibration_torch.ba import lm_pcg
+    from camera_calibration_torch.ba import residuals as res
+    from camera_calibration_torch.ba import schur_cuda as sc
+    from camera_calibration_torch.ba.state import fix_gauge_mask
+
+    dev = torch.device("cuda")
+    rows = []
+    for cell, seed in SCHUR_CELLS:
+        _, _, cfg, mix, units = harness.load_cell(cell)
+        job = units.setup(cfg, mix, seed, dev)
+        state = job.starts[seed % len(job.starts)]
+        data = (job.table,)
+        options = lm_pcg.BAOptions()
+        blocks, _ = lm_pcg.compute_blocks(data, state, (job.table.pixel,),
+                                          options)
+        del job
+        b = blocks[0]
+        gs = tuple(data[0].grid_shape)
+        m, p = gs
+        n = m * p
+        kept = int((b.weight != 0).sum())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        mask = fix_gauge_mask(state)
+        x = mask.unravel(torch.randn(mask.ravel().shape, generator=gen,
+                                     device=dev) * mask.ravel())
+        s_intr = res.intr_apply_j(b.intr, x.intr[0]).contiguous()
+        pts_b = lm_pcg.jtwj_block_diag(data, blocks, state)[2]
+        d_inv = lm_pcg._damped_inv(
+            pts_b, torch.tensor(1e-3, device=dev)).contiguous()
+        for jac in (torch.float32, torch.bfloat16):
+            js = [j.to(jac) for j in (b.j_rig, b.j_cam, b.j_point)]
+            args = js + [b.weight, s_intr, x.rig, x.cam[0]]
+            args64 = [a.double() for a in args]
+            t = sc.point_leg(*args, gs)
+            err_a = rel_err(t.double(), sc.point_leg_plain(*args64, gs))
+            rig, cam = torch.empty((m, 6), device=dev), torch.empty(6,
+                                                                    device=dev)
+            rig64 = torch.empty((m, 6), dtype=torch.float64, device=dev)
+            cam64 = torch.empty(6, dtype=torch.float64, device=dev)
+            ws = sc.pose_leg(*args, t, d_inv, gs, rig, cam)
+            ws64 = sc.pose_leg_plain(*args64, t.double(), d_inv.double(), gs,
+                                     rig64, cam64)
+            err_b = max(rel_err(ws.double(), ws64),
+                        rel_err(rig.double(), rig64),
+                        rel_err(cam.double(), cam64))
+            require(max(err_a, err_b) <= WINDOW_REL_TOL,
+                    f"schur legs at {cell}, {jac}: {err_a}, {err_b}")
+            plan = sc.point_leg_plan(m, p, js[0].element_size(), dev.index)
+            jac_b = 30 * js[0].element_size()
+            need = kept * (jac_b + 4 + 8) + (n - kept) * 4 + m * 24 + 24
+            cases = (
+                ("schur_point_leg", need + p * 12, kept * 62,
+                 lambda: sc.point_leg(*args, gs),
+                 lambda: sc.point_leg_plain(*args, gs), err_a),
+                ("schur_pose_leg", need + n * 8 + p * 48 + m * 24,
+                 kept * 130,
+                 lambda: sc.pose_leg(*args, t, d_inv, gs, rig, cam),
+                 lambda: sc.pose_leg_plain(*args, t, d_inv, gs, rig, cam),
+                 err_b))
+            for name, nbytes, flop, fn, plain, err in cases:
+                ms = time_ms(torch, fn, reps=50, warmup=3)
+                graph_ms = time_ms(torch, fn, reps=50, warmup=1, graph=True)
+                plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+                b_ms, b_by = bound_ms(nbytes, flop)
+                tag = name + ("_bf16" if jac == torch.bfloat16 else "")
+                log(f"[5] {tag} at {cell} ({m}x{p}, {kept} of {n} rows "
+                    f"kept): {ms:.4f} ms, graph {graph_ms:.4f} ms (plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+                    f"{nbytes} B; rel err {err:.2e}; pass A plan "
+                    f"{json.dumps(plan)}) on {smi}")
+                rows.append({
+                    "name": f"{tag}_{cell}", "route": "cuda",
+                    "source": "camera_calibration_torch/csrc/schur_legs.cu",
+                    "replaces": None,
+                    "launches": launches.get((cell, jac), {}).get(tag, 0),
+                    "max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "n": n,
+                    "kept": kept, "grid": f"{m}x{p}"})
+    return rows
 
 
 def time_pipeline_apply_j(torch, jw, base, gh, gw, k, label, launches, smi):
@@ -3573,8 +3702,9 @@ def profile_step(torch, lm_pcg, state, data, options, smi):
 
 @contextmanager
 def plain_routes(cgc, wc):
-    """Route the six kernel wrappers to their plain versions (for the
+    """Route the eight kernel wrappers to their plain versions (for the
     kernel-vs-plain LM step comparison only)."""
+    from camera_calibration_torch.ba import schur_cuda as sc
     from camera_calibration_torch.models import noncentral_generic as ncg
     from camera_calibration_torch.models import noncentral_generic_cuda as ncgc
 
@@ -3585,7 +3715,9 @@ def plain_routes(cgc, wc):
          mock.patch.object(wc, "window_apply_j", wc.window_apply_j_plain), \
          mock.patch.object(wc, "window_apply_jtw", wc.window_apply_jtw_plain), \
          mock.patch.object(wc, "window_block_diag",
-                           wc.window_block_diag_plain):
+                           wc.window_block_diag_plain), \
+         mock.patch.object(sc, "point_leg", sc.point_leg_plain), \
+         mock.patch.object(sc, "pose_leg", sc.pose_leg_plain):
         yield
 
 

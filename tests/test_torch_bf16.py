@@ -202,8 +202,8 @@ def test_bf16_copies_are_made_once_per_solve(bench_problem, monkeypatch):
                         lambda *a: casts.append(1) or cast(*a))
     for name in seen:
         fn = getattr(wc, name)
-        monkeypatch.setattr(wc, name, lambda j, *a, _fn=fn, _n=name:
-                            seen[_n].append(j.dtype) or _fn(j, *a))
+        monkeypatch.setattr(wc, name, lambda j, *a, _fn=fn, _n=name, **kw:
+                            seen[_n].append(j.dtype) or _fn(j, *a, **kw))
     _, ot = _options("schur")
     out = T.make_lm_step(ot)(ts, tuple(s.pixel for s in td),
                              torch.tensor(-1.0, dtype=torch.float64), td)

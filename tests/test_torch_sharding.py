@@ -17,7 +17,11 @@ reference package's unsharded step (its ``tests/test_sharding.py`` and
   eliminated) and one ``schur_direct_points`` step on tables in grid
   layout, sharded in bands of imagesets (the assembled normal equations
   are summed);
-- ``scan``: three cached-blocks steps (``make_lm_scan``).
+- ``scan``: three cached-blocks steps (``make_lm_scan``);
+- ``bands``: one ``schur`` step (points eliminated) of the two-camera rig
+  on tables in grid layout, sharded in bands of imagesets: the reduced
+  matvec's pose and point legs run on each rank's band
+  (``ba/schur_cuda.py``), with t all-reduced between the passes.
 
 Held: both ranks end with the same bits (state, costs, accept decisions,
 CG counts); the decisions and CG counts equal the unsharded port run's
@@ -52,7 +56,7 @@ from camera_calibration_torch import convert
 from camera_calibration_torch.ba import lm_pcg
 from camera_calibration_tpu.ba import dataset as jds
 from camera_calibration_tpu.ba import lm_pcg as jlm
-from torch_sharding_worker import median_error
+from torch_sharding_worker import grid_layout, median_error
 from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -73,6 +77,7 @@ CASES = {
     "direct": (1, dict(STEP, solver="schur_direct"), None),
     "direct_points": (1, dict(STEP, solver="schur_direct_points"), None),
     "scan": (1, STEP, 3),
+    "bands": (2, dict(STEP, solver="schur"), None),
 }
 # The cases run by the reference package's sharding tests, held to its
 # unsharded step too; ``direct*`` and ``scan`` are held to the port's
@@ -126,6 +131,8 @@ def _unsharded(case):
     kind = case["kind"]
     if kind.startswith("direct"):
         data = lm_pcg.maybe_grid_layout(data, state, opts)
+    elif kind == "bands":
+        data = grid_layout(data, state)
     warm = tuple(s.pixel for s in data)
     lam = torch.tensor(-1.0, dtype=torch.float64)
     if kind == "optimize":
@@ -259,3 +266,15 @@ def test_shards_split_the_rows(job):
     for name in ("direct", "direct_points"):
         rows = [ranks[r][name]["rows"][0] for r in range(2)]
         assert rows == [4 * 40, 4 * 40]
+    assert [ranks[r]["bands"]["rows"] for r in range(2)] == [[4 * 40] * 2] * 2
+
+
+def test_bands_take_the_grid_legs(job):
+    """On tables sharded in bands of imagesets the reduced solve runs the
+    grid passes on every rank (the right-hand side, each CG matvec and the
+    back-substitution, once per camera); flat shards never reach them."""
+    ranks, _, _ = job
+    for r in range(2):
+        bands = ranks[r]["bands"]
+        assert bands["point_legs"] == 2 * (sum(bands["cg"]) + 1)
+        assert ranks[r]["step"]["point_legs"] == 0
